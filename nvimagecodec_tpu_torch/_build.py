@@ -1,9 +1,11 @@
 """Builds the hand-written CUDA kernels of csrc/ into one shared library.
 
-At first use, `nvcc` compiles every `csrc/*.cu` for sm_90a into
-`build/libtic_cuda.so` beside this file; the library is rebuilt when a
-source is newer than it. The build writes a temporary file and renames it
-into place, so concurrent processes never load a half-written library.
+At first use, `nvcc` compiles every `csrc/*.cu` for sm_90a, one process per
+source, all at once, and links the objects into `build/libtic_cuda.so`
+beside this file; the library is rebuilt when a source or a shared header
+(`csrc/*.cuh`) is newer than it. The build writes a temporary file and
+renames it into place, so concurrent processes never load a half-written
+library.
 The C entry points take raw pointers and the CUDA stream as `void*`, launch
 on that stream without synchronising, and return `cudaGetLastError()`.
 """
@@ -16,6 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -30,6 +33,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 def sources():
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def headers():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -47,20 +54,43 @@ def _needs_build() -> bool:
     if not os.path.exists(_SO):
         return True
     so_m = os.path.getmtime(_SO)
-    return any(os.path.getmtime(s) > so_m for s in sources())
+    return any(os.path.getmtime(s) > so_m for s in sources() + headers())
 
 
 def build() -> float:
     """Compile csrc/*.cu into the shared library; returns seconds taken."""
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [_nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, *sources()]
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp = f"{_SO}.{tag}.tmp"
+    nvcc = _nvcc()
+    srcs = sources()
+    objs = [os.path.join(_BUILD, f"{os.path.basename(s)}.{tag}.o")
+            for s in srcs]
+
+    def compile_one(src_obj):
+        src, obj = src_obj
+        return subprocess.run(
+            [nvcc, "-gencode", _ARCH, "-std=c++17", "-O3", "-Xcompiler",
+             "-fPIC", "-c", src, "-o", obj], capture_output=True, text=True)
+
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed:\n{r.stderr}")
-    os.replace(tmp, _SO)
+    try:
+        with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+            runs = list(pool.map(compile_one, zip(srcs, objs)))
+        failed = [f"{s}:\n{r.stderr}" for s, r in zip(srcs, runs)
+                  if r.returncode != 0]
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n"
+                               + "\n".join(failed))
+        r = subprocess.run([nvcc, "-gencode", _ARCH, "-shared", "-o", tmp,
+                            *objs], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"CUDA kernel link failed:\n{r.stderr}")
+        os.replace(tmp, _SO)
+    finally:
+        for f in objs + [tmp]:
+            if os.path.exists(f):
+                os.remove(f)
     return time.perf_counter() - t0
 
 
@@ -86,6 +116,10 @@ def _declare(L: ctypes.CDLL) -> None:
                                      ctypes.POINTER(ctypes.c_int32), i32, i32,
                                      vp, vp, vp]
     L.tic_huffman_decode.restype = i32
+    L.tic_prog_huffman_decode.argtypes = [
+        i32, vp, i32, i64, vp, vp, i32, i32, ctypes.POINTER(ctypes.c_int32),
+        i32, i32, i32, i32, i32, vp, vp, vp, vp]
+    L.tic_prog_huffman_decode.restype = i32
 
 
 def check(rc: int, what: str) -> None:

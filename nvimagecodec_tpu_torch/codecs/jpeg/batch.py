@@ -1,21 +1,29 @@
 """Batched JPEG decode on a CUDA device.
 
 The port of nvimagecodec_tpu/codecs/jpeg/batch.py (`decode_batch_tpu`,
-:456-628 and :746-1072). Samples are parsed on a thread pool and bucketed by
+:394-628 and :746-1072). Samples are parsed on a thread pool and bucketed by
 geometry (dimensions, sampling factors, quant tables). Each bucket then takes
-one of two routes, both ending in the same pixel stage (K1, upsample,
+one of three routes, all ending in the same pixel stage (K1, upsample,
 colour), and comes out as one [B, H, W(, C)] tensor whose rows are the
 samples' images:
 
-- idx: a bucket of >= _MIN_BATCH same-table baseline streams. The native
-  index scan finds each MCU row's bit offset and DC predictors on the host,
-  the destuffed bits ship as a [W, S] word matrix, and K2 decodes one MCU
-  row per lane (one launch per bucket).
+- idx: a bucket of >= _MIN_BATCH same-table baseline streams without
+  restart markers. The native index scan finds each MCU row's bit offset
+  and DC predictors on the host, the destuffed bits ship as a [W, S] word
+  matrix, and K2 decodes one MCU row per lane (one launch per bucket).
+- dri: the same for streams whose restart interval is whole MCU rows. The
+  host only splits the scans at their restart markers, so K2 decodes one
+  restart interval per lane with zero DC seeds, and its error flags are the
+  only validation: a flagged sample is decoded again on the host route.
 - host: everything else. Native entropy decode writes int16 coefficients
   into pinned staging, which is copied to the device.
 
-On a CPU device both routes run with the kernels' plain versions, which is
-how the tests hold the port against the reference.
+`decode_progressive` is the explicit progressive entry (K3 scan by scan,
+then the same pixel stage); the Decoder keeps progressive streams on the
+host route, as the reference's router does.
+
+On a CPU device every route runs with the kernels' plain versions, which
+is how the tests hold the port against the reference.
 
 Staging is pinned host memory from PyTorch's caching allocator, reused only
 once the copies that read it have completed. Kernel and device errors raise; a corrupt stream or an index-scan
@@ -36,15 +44,20 @@ from nvimagecodec_tpu.codecs.jpeg.native import decode_coefficients_into
 from nvimagecodec_tpu.core.interfaces import DecodeParams, DecodeResult
 from nvimagecodec_tpu.core.types import ColorSpec, ProcessingStatus
 
-from ...core import trace
 from ...core.trace import span
 from ...ops.entropy_kernels import decode_segments, huffman_tables
 from .device_entropy import (
+    decode_progressive_device,
     device_entropy_plan,
+    frame_segments,
     index_scan_batch,
     indexed_words_needed_batch,
     pack_indexed_batch,
     reassemble_components,
+    split_staged,
+    stage,
+    staged_tables,
+    upload,
 )
 from .pixel import assemble_image_i32, finish_image, geometry_key, idct_planes
 
@@ -53,7 +66,7 @@ from .pixel import assemble_image_i32, finish_image, geometry_key, idct_planes
 _MIN_BATCH = 16
 
 # samples decoded per route since import (tests and the smoke run read it)
-ROUTES = {"idx": 0, "host": 0, "reissued": 0}
+ROUTES = {"idx": 0, "dri": 0, "host": 0, "reissued": 0}
 _ROUTES_LOCK = threading.Lock()
 
 _FAIL_CORRUPT = ProcessingStatus.FAIL | ProcessingStatus.IMAGE_CORRUPTED
@@ -77,22 +90,6 @@ def _shared_pool(name: str, workers: int) -> ThreadPoolExecutor:
                                    thread_name_prefix=f"tic-{name}")
             _EXECS[name] = p
         return p
-
-
-def _staging(shape, dtype, device) -> torch.Tensor:
-    """Host staging for a device upload. For CUDA it is pinned memory from
-    PyTorch's caching host allocator, which hands a block out again only
-    after the events recorded on the copies that read it have completed."""
-    return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
-
-
-def _upload(bufs: List[torch.Tensor], device) -> List[torch.Tensor]:
-    """Host staging → device tensors: asynchronous copies on the current
-    stream. On the CPU the buffers are the device tensors."""
-    if device.type != "cuda":
-        return bufs
-    trace.add_count("imgcodec.jpeg.h2d_bytes", sum(b.nbytes for b in bufs))
-    return [b.to(device, non_blocking=True) for b in bufs]
 
 
 def _fetch(t: torch.Tensor, device):
@@ -135,8 +132,8 @@ def split_indexed(good, frames, raws, R, nsegs, device, min_ok: int = 1):
     W = indexed_words_needed_batch(dlens[ks], bits[ks], nsegs)
     B = len(ok)
     S = -(-B * nsegs // 128) * 128
-    words = _staging((W, S), torch.int32, device)
-    side = _staging((6, S), torch.int32, device)
+    words = stage((W, S), torch.int32, device)
+    side = stage((6, S), torch.int32, device)
     words_np = words.numpy().view(np.uint32)
     side_np = side.numpy()
     words_np[:, B * nsegs:] = 0
@@ -157,6 +154,25 @@ def split_indexed(good, frames, raws, R, nsegs, device, min_ok: int = 1):
     return ok, set(bad), bad_scan, words, side
 
 
+def split_dri(good, frames, raws, nsegs, device):
+    """Restart-marker split for one bucket: byte-aligned segments, zero DC
+    seeds. Returns (bad, words, side) with bad the positions in `good`
+    whose scan did not split into nsegs segments, words [W, S] and side
+    [6, S] int32 staging tensors; or None when the words would exceed
+    `device_entropy.MAX_WORD_BYTES`. One K2 launch covers the bucket:
+    S = ceil(B * nsegs / 128) * 128."""
+    f0 = frames[good[0]]
+    S = -(-len(good) * nsegs // 128) * 128
+    datas = [raws[i][frames[i].scans[0].data_start:frames[i].scans[0].data_end]
+             for i in good]
+    split = split_staged(datas, nsegs, f0.restart_interval,
+                         frame_segments(f0)[1], S, device)
+    if split is None:
+        return None
+    words, side, counts = split
+    return [k for k, n in enumerate(counts) if n != nsegs], words, side
+
+
 def route_plan(frame):
     """The reference's device-entropy route plan, for Huffman-coded
     sequential streams only; None sends the stream to the host route."""
@@ -170,33 +186,41 @@ def route_plan(frame):
 
 def _try_device_entropy(idxs, frames, raws, results, fancy, to_rgb, to_u8,
                         bitexact, device, checks):
-    """The idx route for one geometry bucket. Returns the sample indices it
-    leaves to the host route, or None to decline the whole bucket. Appends
-    (ok, bad, nsegs, err, event) to `checks` for the caller's flag check."""
+    """The idx or dri route for one geometry bucket. Returns the sample
+    indices it leaves to the host route, or None to decline the whole
+    bucket. Appends (ok, bad, nsegs, err, event) to `checks` for the
+    caller's flag check."""
     f0 = frames[idxs[0]]
     plan = route_plan(f0)
-    if plan is None or plan[0] != "idx":
-        return None  # restart-marker streams take the host route
+    if plan is None:
+        return None
     good = [i for i in idxs if i == idxs[0] or route_plan(frames[i]) == plan]
     if len(good) < _MIN_BATCH or len(good) * 2 < len(idxs):
         return None
     good_set = set(good)
     leftover = [i for i in idxs if i not in good_set]
-    _kind, _key, R, nsegs = plan
+    kind, _key, R, nsegs = plan
 
-    with span("imgcodec.jpeg.index_scan"):
-        split = split_indexed(good, frames, raws, R, nsegs, device,
-                              min_ok=max(2, _MIN_BATCH // 2))
-    if split is None:
-        return None
-    ok, bad, bad_scan, words, side = split
-    leftover.extend(bad_scan)
+    if kind == "dri":
+        with span("imgcodec.jpeg.dri_split"):
+            split = split_dri(good, frames, raws, nsegs, device)
+        if split is None:
+            return None
+        bad_pos, words, side = split
+        ok, bad = good, set(bad_pos)  # bad: malformed restart structure
+    else:
+        with span("imgcodec.jpeg.index_scan"):
+            split = split_indexed(good, frames, raws, R, nsegs, device,
+                                  min_ok=max(2, _MIN_BATCH // 2))
+        if split is None:
+            return None
+        ok, bad, bad_scan, words, side = split
+        leftover.extend(bad_scan)
     R, comp_map, tables = huffman_tables(f0, R)
-    words_d, side_d = _upload([words, side], device)
+    words_d, side_d, tables_d = upload(
+        [words, side, staged_tables(tables, device)], device)
     with span("imgcodec.jpeg.device_entropy"):
-        out, err = decode_segments(words_d, side_d,
-                                   torch.from_numpy(tables).to(device), R,
-                                   comp_map)
+        out, err = decode_segments(words_d, side_d, tables_d, R, comp_map)
         # the flags come back while the pixel stage runs
         checks.append((ok, bad, nsegs) + _fetch(err, device))
         coefs = reassemble_components(out, f0, len(ok), nsegs, R)
@@ -206,7 +230,7 @@ def _try_device_entropy(idxs, frames, raws, results, fancy, to_rgb, to_u8,
             leftover.append(i)
         else:
             results[i] = DecodeResult(ProcessingStatus.SUCCESS, imgs[j])
-    _count("idx", len(ok) - len(bad))
+    _count(kind, len(ok) - len(bad))
     return leftover
 
 
@@ -216,9 +240,9 @@ def _host_route(idxs, frames, raws, results, fancy, to_rgb, to_u8, bitexact,
     frame0 = frames[idxs[0]]
     _, _, dims = frame0.mcu_geometry()
     b = len(idxs)
-    stage = [_staging((b, bh, bw, 64), torch.int16, device)
-             for (bw, bh) in dims]
-    views = [s.numpy() for s in stage]
+    bufs = [stage((b, bh, bw, 64), torch.int16, device)
+            for (bw, bh) in dims]
+    views = [s.numpy() for s in bufs]
 
     def fill(j):
         """Decode sample j into its slot; the error text if it is corrupt."""
@@ -240,7 +264,7 @@ def _host_route(idxs, frames, raws, results, fancy, to_rgb, to_u8, bitexact,
         results[idxs[j]] = DecodeResult(_FAIL_CORRUPT, error=errors[j])
         for v in views:  # a half-written slot must not reach the pixels
             v[j] = 0
-    coefs = _upload(stage, device)
+    coefs = upload(bufs, device)
     imgs = _pixel_stage(frame0, coefs, False, fancy, to_rgb, to_u8, bitexact)
     for j, i in enumerate(idxs):
         if j not in failed:
@@ -303,9 +327,11 @@ def decode_batch_cuda(data_batch, params: DecodeParams, device="cuda",
         _host_route(idxs, frames, raws, results, fancy, to_rgb, to_u8,
                     bitexact, device, pool)
 
-    # K2's per-lane flags: the index scan already walked every symbol, so
-    # a flag here means the kernel and the scan disagree. Such samples are
-    # decoded again on the host route and counted as re-issued.
+    # K2's per-lane flags. On the idx route the index scan already walked
+    # every symbol, so a flag means the kernel and the scan disagree; on the
+    # dri route nothing else checked the symbols, so a flag is a corrupt
+    # segment. Either way the sample is decoded again on the host route and
+    # counted as re-issued.
     flagged = []
     for ok, bad, nsegs, err, event in checks:
         if event is not None:
@@ -322,3 +348,20 @@ def decode_batch_cuda(data_batch, params: DecodeParams, device="cuda",
             results[i] = r
         _count("reissued", len(flagged))
     return results
+
+
+def decode_progressive(data, device="cuda", fancy: bool = True,
+                       bitexact: bool = False) -> torch.Tensor:
+    """Decode one Huffman-coded progressive JPEG with restart markers in
+    every scan: K3 scan by scan (`decode_progressive_device`), then the
+    pixel stage (K1, upsample, colour) with a batch axis of 1. Returns the
+    image [H, W(, C)] on `device` (uint8; CMYK becomes RGB). Raises
+    ValueError for a stream outside the route's scope or a corrupt one."""
+    device = torch.device(device)
+    raw = bytes(data)
+    frame = parse_jpeg_structure(raw)
+    with span("imgcodec.jpeg.prog_entropy"):
+        planes = decode_progressive_device(frame, raw, device)
+    img = _pixel_stage(frame, [p[None] for p in planes], True, fancy, True,
+                       True, bitexact)
+    return img[0]

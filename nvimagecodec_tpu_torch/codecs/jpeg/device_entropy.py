@@ -1,21 +1,68 @@
-"""Device entropy route: host glue reused, reassembly on tensors.
+"""Device entropy routes: host glue reused, device work on tensors.
 
 The host half of nvimagecodec_tpu/codecs/jpeg/device_entropy.py (route
-plan, native index scan, word packing) is numpy and ctypes, and is imported
-unchanged. `reassemble_components` is the torch counterpart of its
-:285-312: K2's [NBLK, 64, S] lane-major output back into per-component
-[B, bh, bw, 64] zigzag stacks.
+plan, native index scan, restart-marker split, word packing) is numpy and
+ctypes, and is imported unchanged. This module adds the torch half:
+
+- `stage` / `upload`: pinned host staging and its asynchronous upload;
+- `split_staged`: the restart-marker split of scans into staged words and
+  side, shared by the dri route and the progressive route;
+- `reassemble_components` (the reference's :285-312): K2's [NBLK, 64, S]
+  lane-major output back into per-component [B, bh, bw, 64] zigzag stacks;
+- `decode_progressive_device` (the reference's :315-422): a progressive
+  stream with restart markers decoded scan by scan with K3, the coefficient
+  planes kept on the device across scans.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import List
+
+import numpy as np
 import torch
 
 from nvimagecodec_tpu.codecs.jpeg.device_entropy import (  # noqa: F401
     device_entropy_plan,
     index_scan_batch,
     indexed_words_needed_batch,
+    frame_segments,
     pack_indexed_batch,
 )
+from nvimagecodec_tpu.native import lib as native_lib
+from nvimagecodec_tpu.ops.pallas_entropy import make_side, prog_scan_specs
+
+from ...core import trace
+from ...core.trace import span
+from ...ops.entropy_kernels import (
+    decode_prog_scan,
+    prog_scan_kind,
+    prog_scan_tables,
+)
+
+
+def stage(shape, dtype, device) -> torch.Tensor:
+    """Host staging for a device upload. For CUDA it is pinned memory from
+    PyTorch's caching host allocator, which hands a block out again only
+    after the events recorded on the copies that read it have completed."""
+    return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
+
+
+def upload(bufs: List[torch.Tensor], device) -> List[torch.Tensor]:
+    """Host staging → device tensors: asynchronous copies on the current
+    stream. On the CPU the buffers are the device tensors."""
+    if device.type != "cuda":
+        return bufs
+    trace.add_count("imgcodec.jpeg.h2d_bytes", sum(b.nbytes for b in bufs))
+    return [b.to(device, non_blocking=True) for b in bufs]
+
+
+def words_estimate(scan_bytes: int, nsegs: int) -> int:
+    """First guess of the word rows a restart segment needs: twice the
+    mean segment, rounded up to 256 (callers double it when a segment does
+    not fit)."""
+    est = scan_bytes // 4 // nsegs * 2 + 16
+    return -(-est // 256) * 256
 
 
 def reassemble_components(out: torch.Tensor, frame, B: int, nsegs: int,
@@ -43,3 +90,167 @@ def reassemble_components(out: torch.Tensor, frame, B: int, nsegs: int,
         xc = xc.reshape(B, nsegs * rows_per_seg * c.v, mcus_x * c.h, 64)
         coefs.append(xc[:, :mcus_y * c.v])  # drop short-segment padding rows
     return coefs
+
+
+@functools.lru_cache(maxsize=64)
+def _dc_index(mcus_x: int, mcus_y: int, hv: tuple, R: int, S: int,
+              device: torch.device):
+    """Per component, [mcus_y*v, mcus_x*h] indices into a DC scan's
+    flattened [R*bpm, S] output: block (row, col) is block b of MCU g, the
+    unit g % R of lane g // R."""
+    bpm = sum(h * v for h, v in hv)
+    maps = []
+    off = 0
+    for h, v in hv:
+        r = np.arange(mcus_y * v)[:, None]
+        q = np.arange(mcus_x * h)[None, :]
+        g = (r // v) * mcus_x + q // h
+        b = off + (r % v) * h + q % h
+        maps.append(torch.from_numpy((g % R * bpm + b) * S + g // R)
+                    .to(device))
+        off += h * v
+    return tuple(maps)
+
+
+@functools.lru_cache(maxsize=64)
+def _ac_index(cbw: int, cbh: int, R: int, S: int, device: torch.device):
+    """(gather, band) for an AC scan over a cbh x cbw block grid: gather
+    [cbh*cbw] indexes the [R*S] (unit, lane) rows of the output, block g
+    being unit g % R of lane g // R; band [R, S] is the block each
+    (unit, lane) holds, or cbh*cbw (a zero row) past the last block."""
+    units = cbw * cbh
+    g = np.arange(units)
+    gather = torch.from_numpy(g % R * S + g // R).to(device)
+    band = np.arange(R)[:, None] + np.arange(S)[None, :] * R
+    band = torch.from_numpy(np.minimum(band, units)).to(device)
+    return gather, band
+
+
+# a restart-segment word matrix larger than this is refused (a corrupt
+# stream can make one segment as long as its whole scan)
+MAX_WORD_BYTES = 1 << 30
+
+
+def split_staged(datas, nsegs: int, R: int, units: int, S: int, device):
+    """Split entropy-coded scans of `units` units each at their restart
+    markers (every R units) into staged [W, S] words and [6, S] side (units
+    per lane, start bit 0, zero DC seeds), scan k in lanes k*nsegs on. W
+    starts at `words_estimate` of the longest scan and doubles until every
+    segment fits. Returns (words, side, counts), counts[k] the segments
+    scan k split into (a scan with counts[k] != nsegs has a malformed
+    restart structure and lanes of 0 units), or None when the words would
+    exceed MAX_WORD_BYTES."""
+    L = native_lib()
+    W = words_estimate(max(len(d) for d in datas), nsegs)
+    while W * S * 4 <= MAX_WORD_BYTES:
+        words = stage((W, S), torch.int32, device)
+        wnp = words.numpy().view(np.uint32)
+        wnp[:, len(datas) * nsegs:] = 0
+        ptr = wnp.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+        counts = []
+        for k, d in enumerate(datas):
+            n = L.tic_jpeg_split_segments(d, len(d), ptr, S, k * nsegs,
+                                          nsegs, W)
+            if n == -1:  # a segment outgrew W
+                break
+            counts.append(n)
+        else:
+            seg_units = np.zeros(S, np.int32)
+            for k, n in enumerate(counts):
+                if n == nsegs:
+                    col = k * nsegs
+                    seg_units[col:col + nsegs] = R
+                    seg_units[col + nsegs - 1] = units - (nsegs - 1) * R
+            side = stage((6, S), torch.int32, device)
+            side.numpy()[:] = make_side(seg_units)
+            return words, side, counts
+        W *= 2
+    return None
+
+
+def staged_tables(tables: np.ndarray, device) -> torch.Tensor:
+    """Huffman tables in pinned staging, to go up with `upload`."""
+    t = stage(tables.shape, torch.int32, device)
+    t.numpy()[:] = tables
+    return t
+
+
+def decode_progressive_device(frame, raw: bytes, device) -> List[torch.Tensor]:
+    """Decode a Huffman-coded progressive stream with restart markers in
+    every scan on `device`, scan by scan with K3 (each scan's words, side
+    and tables go up in pinned, asynchronous copies): the DC scan, the AC
+    band scans and the successive-approximation refinement scans. Returns
+    per-component zigzag [mcus_y*v, mcus_x*h, 64] int16 planes (padded MCU
+    grid) on the device. Raises ValueError outside K3's scope, when a scan
+    does not split into its restart segments, or when K3 flags a lane."""
+    if frame.marker != 0xC2:
+        raise ValueError("prog device entropy: Huffman-coded progressive "
+                         "(SOF2) only")
+    scans = prog_scan_specs(frame)
+    if any(s.ss > s.se or s.se > 63 for s in scans):
+        raise ValueError("prog device entropy: bad spectral band")
+    device = torch.device(device)
+    mcus_x = -(-frame.width // (8 * frame.hmax))
+    mcus_y = -(-frame.height // (8 * frame.vmax))
+    hv = tuple((c.h, c.v) for c in frame.components)
+    planes = [torch.zeros((mcus_y * v, mcus_x * h, 64), dtype=torch.int16,
+                          device=device) for h, v in hv]
+    flags = []
+    for scan in scans:
+        kind = prog_scan_kind(scan)
+        R = scan.restart_interval
+        if scan.ss == 0:
+            units = mcus_x * mcus_y
+            comp_map = tuple(ci for ci, (h, v) in enumerate(hv)
+                             for _ in range(h * v))
+        else:
+            ci = scan.comp_indices[0]
+            cbw, cbh = frame.comp_true_blocks(frame.components[ci])
+            units = cbw * cbh
+            comp_map = (0,)
+        nsegs = -(-units // R)
+        S = -(-nsegs // 128) * 128
+        with span("imgcodec.jpeg.prog_split"):
+            split = split_staged([raw[scan.data_start:scan.data_end]], nsegs,
+                                 R, units, S, device)
+            if split is None:
+                raise ValueError("prog device entropy: restart segment "
+                                 "too long")
+            words, side, (n,) = split
+            if n != nsegs:
+                raise ValueError(f"prog device entropy: scan split into {n} "
+                                 f"segments, expected {nsegs}")
+            tables = staged_tables(prog_scan_tables(frame, scan), device)
+        with span("imgcodec.jpeg.prog_kernel"):
+            words_d, side_d, tables_d = upload([words, side, tables], device)
+            band_in = None
+            if scan.ss != 0:
+                gather, band = _ac_index(cbw, cbh, R, S, device)
+                if kind == "acref":
+                    # the band's current state goes up with the scan
+                    cur = planes[ci][:cbh, :cbw].reshape(units, 64)
+                    cur = torch.cat([cur, cur.new_zeros((1, 64))])
+                    band_in = cur[band].permute(0, 2, 1).contiguous()
+            out, err = decode_prog_scan(kind, words_d, side_d, tables_d, R,
+                                        len(comp_map), comp_map, scan.ss,
+                                        scan.se, scan.al, band_in)
+            flags.append(err[:nsegs])
+        with span("imgcodec.jpeg.prog_scatter"):
+            if scan.ss == 0:
+                flat = out.reshape(-1)
+                for plane, idx in zip(planes, _dc_index(mcus_x, mcus_y, hv,
+                                                        R, S, device)):
+                    if scan.ah == 0:
+                        plane[..., 0] = flat[idx]
+                    else:  # refinement: OR bit << al (T.81 G.1.2.1)
+                        plane[..., 0] |= flat[idx]
+            else:
+                n = scan.se - scan.ss + 1
+                rows = out[:, scan.ss:scan.se + 1].permute(0, 2, 1)
+                planes[ci][:cbh, :cbw, scan.ss:scan.se + 1] = (
+                    rows.reshape(-1, n)[gather].reshape(cbh, cbw, n))
+    with span("imgcodec.jpeg.prog_flags"):
+        flagged = bool(torch.cat(flags).any())  # the stream's one sync
+    if flagged:
+        raise ValueError("prog device entropy: kernel flagged error")
+    return planes

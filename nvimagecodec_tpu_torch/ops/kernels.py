@@ -39,16 +39,18 @@ def to_natural(blocks: torch.Tensor, zigzag: bool) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _matrix_cpu(quant_bytes: bytes) -> torch.Tensor:
+def _matrix(quant_bytes: bytes, device: torch.device) -> torch.Tensor:
     quant = np.frombuffer(quant_bytes, np.int32).reshape(64)
-    return torch.from_numpy(dequant_idct_matrix(quant))
+    return torch.from_numpy(dequant_idct_matrix(quant)).to(device)
 
 
 def idct_matrix(quant: np.ndarray, device) -> torch.Tensor:
     """K1's matrix: the reference's dequant-folded IDCT matrix
-    [64 pixels, 64 natural coefficients] float32 on `device`."""
+    [64 pixels, 64 natural coefficients] float32 on `device`. Kept per
+    table and device, so a pixel stage uploads (and waits for) no copy of
+    a table it has seen; callers must not write to it."""
     q = np.ascontiguousarray(np.asarray(quant, np.int32).reshape(64))
-    return _matrix_cpu(q.tobytes()).to(device)
+    return _matrix(q.tobytes(), torch.device(device))
 
 
 def dequant_idct_blocks_plain(coefs: torch.Tensor, M: torch.Tensor,

@@ -1,5 +1,6 @@
 """Card tests of the CUDA port: the hand-written kernels against their plain
-PyTorch versions, and the Decoder on the GPU against the Decoder on the CPU.
+PyTorch versions, and the Decoder (idx and dri routes) and the progressive
+route on the GPU against the same on the CPU.
 They need a CUDA device and skip without one. On the GPU machine:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
@@ -9,13 +10,16 @@ import pytest
 import torch
 
 import nvimagecodec_tpu_torch as port
+import torch_corpus
 from nvimagecodec_tpu.codecs.jpeg.encode import encode_jpeg
+from nvimagecodec_tpu.codecs.jpeg.headers import parse_jpeg_structure
 from nvimagecodec_tpu.codecs.jpeg.pixel import ZIGZAG_NAT
 from nvimagecodec_tpu.codecs.jpeg.tables import (
     STD_CHROMA_QUANT,
     quality_scaled_quant,
 )
 from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
+from nvimagecodec_tpu_torch.codecs.jpeg import device_entropy as de
 from nvimagecodec_tpu_torch.ops import entropy_kernels as ek
 from nvimagecodec_tpu_torch.ops import kernels
 from util import make_photo
@@ -117,3 +121,73 @@ def test_decoder_gpu_bitexact_equals_cpu(cuda, jpgs):
     cpu = port.Decoder(device="cpu", options=opt).decode(jpgs)
     for g, c in zip(gpu, cpu):
         assert torch.equal(g.array.cpu(), c.array)
+
+
+@pytest.fixture(scope="module")
+def k3_scans(cuda):
+    """Every scan of one committed progressive stream through K3 and its
+    plain version on the same device inputs: [(kind, kernel, plain)]."""
+    data = torch_corpus.progressive_streams()[0]
+    seen = []
+    real = de.decode_prog_scan
+
+    def both(kind, words, side, tables, *rest):
+        before = ek.decode_prog_scan.launches
+        got = real(kind, words, side, tables, *rest)
+        assert ek.decode_prog_scan.launches == before + 1
+        want = ek.decode_prog_scan_plain(kind, words, side, tables, *rest)
+        bad = words.clone()
+        bad[1:5, 3] = -1  # a corrupted lane: no code is sixteen 1 bits
+        seen.append((kind, got, want, real(kind, bad, side, tables, *rest),
+                     ek.decode_prog_scan_plain(kind, bad, side, tables,
+                                               *rest)))
+        return got
+
+    de.decode_prog_scan = both
+    try:
+        de.decode_progressive_device(parse_jpeg_structure(data), data, cuda)
+    finally:
+        de.decode_prog_scan = real
+    torch.cuda.synchronize()
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["dc", "dcref", "ac", "acref"])
+def test_k3_kernel_vs_plain(k3_scans, kind):
+    runs = [r for r in k3_scans if r[0] == kind]
+    assert runs
+    for _kind, got, want, got_bad, want_bad in runs:
+        for a, b in zip(got + got_bad, want + want_bad):
+            assert torch.equal(a, b)
+        assert not got[1].any()
+    if kind in ("dc", "ac"):
+        assert int(runs[0][3][1][3]) == 1
+
+
+def test_progressive_route_gpu_vs_cpu(cuda):
+    data = torch_corpus.progressive_streams()[1]
+    frame = parse_jpeg_structure(data)
+    gpu = de.decode_progressive_device(frame, data, cuda)
+    cpu = de.decode_progressive_device(frame, data, "cpu")
+    for g, c in zip(gpu, cpu):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), c)
+    img = jb.decode_progressive(data, cuda)
+    want = jb.decode_progressive(data, "cpu")
+    assert int((img.cpu().int() - want.int()).abs().max()) <= 1
+
+
+def test_decoder_gpu_dri_route_equals_host_route(cuda):
+    photos = [make_photo(120, 168, seed=s) for s in range(20)]
+    datas = [torch_corpus.encode_dri(p, 85, 11) for p in photos]
+    params = port.DecodeParams()
+    before = dict(jb.ROUTES)
+    dri = jb.decode_batch_cuda(datas, params, cuda)
+    assert jb.ROUTES["dri"] - before["dri"] == len(datas)
+    assert jb.ROUTES["reissued"] == before["reissued"]
+    host = jb.decode_batch_cuda(datas, params, cuda, device_entropy=False)
+    for a, b in zip(dri, host):
+        assert a.array.device.type == "cuda"
+        assert torch.equal(a.array, b.array)
+    cpu = port.Decoder(device="cpu").decode(datas[:4])
+    for g, c in zip(dri, cpu):
+        assert int((g.array.cpu().int() - c.array.int()).abs().max()) <= 1

@@ -1,6 +1,8 @@
 """The CUDA port runs where jax cannot be imported: in a fresh interpreter
 with `sys.modules['jax'] = None`, it imports, decodes a JPEG bucket on the
-CPU through the idx route, and encodes and decodes a PNG."""
+CPU through the idx route and a restart-marker bucket through the dri
+route, decodes a progressive stream through the progressive route, and
+encodes and decodes a PNG."""
 import os
 import subprocess
 import sys
@@ -23,6 +25,25 @@ assert jb.ROUTES["idx"] == 16, jb.ROUTES
 for im, src in zip(out, imgs):
     assert im.shape == (64, 80, 3)
     assert np.abs(np.asarray(im).astype(int) - src.astype(int)).mean() < 8
+
+import oracle
+from nvimagecodec_tpu.codecs.jpeg.headers import parse_jpeg_structure
+from nvimagecodec_tpu_torch.codecs.jpeg.device_entropy import (
+    decode_progressive_device)
+jb._MIN_BATCH = 4
+dri = [oracle.jpeg_encode(im, 85, "420", restart_interval=5)
+       for im in imgs[:4]]
+out = port.Decoder(device="cpu").decode(dri)
+assert jb.ROUTES["dri"] == 4, jb.ROUTES
+for im, src in zip(out, imgs):
+    assert np.abs(np.asarray(im).astype(int) - src.astype(int)).mean() < 8
+prog = oracle.jpeg_encode(imgs[0], 85, "420", progressive=True,
+                          restart_interval=5)
+planes = decode_progressive_device(parse_jpeg_structure(prog), prog, "cpu")
+assert [tuple(p.shape) for p in planes] == [(8, 10, 64), (4, 5, 64),
+                                            (4, 5, 64)]
+img = jb.decode_progressive(prog, "cpu")
+assert np.abs(img.numpy().astype(int) - imgs[0].astype(int)).mean() < 8
 png = port.Encoder().encode(imgs[0], "png")
 back = port.Decoder(device="cpu").decode(png)
 assert np.array_equal(np.asarray(back), imgs[0])

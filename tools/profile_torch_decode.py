@@ -2,9 +2,11 @@
 
     python3 tools/profile_torch_decode.py [--batch 256] [--reps 5]
 
-Needs one CUDA device. Decodes chip_smoke.py's corpus (375x500 q85 4:2:0,
-standard Huffman tables, 8 make_photo seeds cycled) and prints, for the idx
-route and the host route:
+Needs one CUDA device. Decodes chip_smoke.py's corpora (375x500 q85 4:2:0,
+standard Huffman tables, 8 make_photo seeds cycled; the same photos with a
+restart marker every MCU row and the 8 progressive streams, both committed
+in tests/torch_corpus) and prints, for the idx, dri and host routes and for
+the progressive route (`decode_progressive`, one stream at a time):
 
 - images/s through `Decoder.decode` and `decode_batch_cuda`, on the host
   clock to `torch.cuda.synchronize()`;
@@ -43,6 +45,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import nvimagecodec_tpu_torch as nic
+    import torch_corpus
     from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
     from nvimagecodec_tpu_torch.core import trace
     from util import make_photo
@@ -56,57 +59,76 @@ def main() -> int:
     params = nic.EncodeParams(
         quality=85, chroma_subsampling=nic.ChromaSubsampling.CSS_420,
         jpeg=nic.JpegEncodeParams(optimized_huffman=False))
-    uniq = nic.Encoder().encode(
-        [make_photo(375, 500, seed=s) for s in range(8)], "jpeg", params)
+    photos = [make_photo(375, 500, seed=s) for s in range(8)]
+    uniq = nic.Encoder().encode(photos, "jpeg", params)
     jpgs = [uniq[i % 8] for i in range(args.batch)]
+    dri_uniq = torch_corpus.dri_streams()
+    dri_jpgs = [dri_uniq[i % 8] for i in range(args.batch)]
+    prog = torch_corpus.progressive_streams()
     dec = nic.Decoder(device="cuda",
                       backends=[nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)])
     p = nic.DecodeParams()
+    routes = {"idx": (jpgs, True), "dri": (dri_jpgs, True),
+              "host": (jpgs, False)}
 
-    def batch_fn(idx_route):
-        return lambda: jb.decode_batch_cuda(jpgs, p, "cuda",
-                                            device_entropy=idx_route)
+    def batch_fn(route):
+        data, device_entropy = routes[route]
+        return lambda: jb.decode_batch_cuda(data, p, "cuda",
+                                            device_entropy=device_entropy)
 
-    def rate(fn):
+    def prog_fn():
+        for d in prog:
+            jb.decode_progressive(d, "cuda")
+
+    def rate(fn, n=args.batch):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(args.reps):
             fn()
         torch.cuda.synchronize()
-        return args.reps * args.batch / (time.perf_counter() - t0)
+        return args.reps * n / (time.perf_counter() - t0)
 
-    # alternate the routes so that drift on a shared host hits both
+    # alternate the routes so that drift on a shared host hits each
     for label, fn in [("Decoder.decode (idx)", lambda: dec.decode(jpgs)),
-                      ("decode_batch_cuda idx", batch_fn(True)),
-                      ("decode_batch_cuda host", batch_fn(False)),
-                      ("Decoder.decode (idx)", lambda: dec.decode(jpgs)),
-                      ("decode_batch_cuda host", batch_fn(False))]:
+                      ("decode_batch_cuda idx", batch_fn("idx")),
+                      ("decode_batch_cuda dri", batch_fn("dri")),
+                      ("decode_batch_cuda host", batch_fn("host")),
+                      ("Decoder.decode (dri)", lambda: dec.decode(dri_jpgs)),
+                      ("decode_batch_cuda host", batch_fn("host")),
+                      ("decode_batch_cuda dri", batch_fn("dri")),
+                      ("decode_batch_cuda idx", batch_fn("idx"))]:
         print(f"{label}: {rate(fn):.1f} images/s", flush=True)
+    print(f"decode_progressive (one stream at a time): "
+          f"{rate(prog_fn, len(prog)):.1f} images/s", flush=True)
 
-    for route, idx_route in (("idx", True), ("host", False)):
+    runs = {r: (batch_fn(r), args.batch) for r in routes}
+    runs["prog"] = (prog_fn, len(prog))
+    for route, (fn, n) in runs.items():
         trace.start_collect()
         for _ in range(args.reps):
-            batch_fn(idx_route)()
+            fn()
         torch.cuda.synchronize()
         d = trace.stop_collect()
-        spans = {k: round(v * 1000 / args.reps, 3)
-                 for k, v in d["spans"].items()}
-        counters = {k: v / args.reps for k, v in d["counters"].items()}
-        print(f"spans, ms per batch ({route}): {json.dumps(spans)}; "
-              f"counters per batch: {json.dumps(counters)}", flush=True)
+        per = args.reps * (1 if route != "prog" else n)
+        spans = {k: round(v * 1000 / per, 3) for k, v in d["spans"].items()}
+        counters = {k: v / per for k, v in d["counters"].items()}
+        unit = "batch" if route != "prog" else "stream"
+        print(f"spans, ms per {unit} ({route}): {json.dumps(spans)}; "
+              f"counters per {unit}: {json.dumps(counters)}", flush=True)
 
-    for route, idx_route in (("idx", True), ("host", False)):
+    for route, (fn, n) in runs.items():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            batch_fn(idx_route)()
+            fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ev = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in ev) / 1000
-        print(f"profiled batch ({route}): wall {wall * 1000:.3f} ms, device "
+        print(f"profiled {'batch' if route != 'prog' else f'{n} streams'} "
+              f"({route}): wall {wall * 1000:.3f} ms, device "
               f"busy {busy:.3f} ms, idle share {1 - busy / (wall * 1000):.3f}",
               flush=True)
         for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:14]:
