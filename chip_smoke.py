@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels (csrc/*.cu) with nvcc, then drives the
-port's three device paths on the GPU and checks that each ran through its
-kernels (launch counts set to 0 just before the path, read just after):
+Builds the hand-written kernels (csrc/*.cu) with nvcc and the host library
+(native/*.cpp) with c++, both from the sources in this checkout, then drives
+the port's three device paths on the GPU and checks that each ran through
+its kernels (launch counts set to 0 just before the path, read just after):
 
 - main path: 256 baseline 4:2:0 JPEGs of 375x500 at q85 (the corpus
   bench.py times) through the public Decoder, idx route (K2, K1);
@@ -15,7 +16,10 @@ kernels (launch counts set to 0 just before the path, read just after):
 
 It checks the images and coefficients against the CPU and the native host
 decoder, holds each kernel against its plain PyTorch version on the card,
-and times them. The second-to-last line is one JSON object describing the
+and times them beside their bound (the larger of bytes moved over 3.35 TB/s
+and operations over the card's peak for their type) and, for K1, beside the
+one library call that computes its product (`torch.matmul`, used nowhere in
+the port). The second-to-last line is one JSON object describing the
 kernels; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, so the exit code is not 0. Without a CUDA device it
@@ -28,12 +32,24 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 256
 H, W = 375, 500
 QUALITY = 85
 SEEDS = 8
+# NVIDIA's data sheet for the H100 SXM: device memory rate, and the fp32 rate
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+K1_GOAL_MS = 0.30  # the three main-path launches together
+
+
+def bytes_bound_ms(*tensors) -> float:
+    """Milliseconds to move each of `tensors` once at the memory rate."""
+    return sum(t.numel() * t.element_size() for t in tensors) \
+        / HBM_BYTES_PER_S * 1e3
 
 
 def phase(name: str, msg: str) -> None:
@@ -67,7 +83,7 @@ def main() -> int:
     import numpy as np
 
     import nvimagecodec_tpu_torch as nic
-    from nvimagecodec_tpu_torch import _build
+    from nvimagecodec_tpu_torch import _build, native
     from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
     from nvimagecodec_tpu_torch.codecs.jpeg.device_entropy import (
         reassemble_components,
@@ -78,6 +94,7 @@ def main() -> int:
         huffman_tables,
     )
     from nvimagecodec_tpu_torch.ops.kernels import (
+        ZIGZAG_NAT,
         dequant_idct_blocks,
         dequant_idct_blocks_plain,
         idct_matrix,
@@ -101,11 +118,17 @@ def main() -> int:
     phase("device", f"{kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; nvidia-smi: {card}")
 
-    # 2) kernel build from the sources in this checkout
-    secs = _build.build()
+    # 2) both libraries from the sources in this checkout, side by side
+    with ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        host = pool.submit(native.build)
+        secs = _build.build()
+        host.result()
+        host_secs = time.perf_counter() - t0
     _build.lib()
+    native.lib()
     phase("build", f"nvcc sm_90a {len(_build.sources())} sources in "
-          f"{secs:.2f} s")
+          f"{secs:.2f} s; c++ host library in {host_secs:.2f} s beside it")
 
     # 3) the corpus: 8 photos cycled, standard Huffman tables
     t0 = time.perf_counter()
@@ -126,7 +149,7 @@ def main() -> int:
                       backends=[nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)])
     routes0 = dict(jb.ROUTES)
     counts_zero()
-    imgs = dec.decode(jpgs)
+    imgs, k1_main_err, _shapes = k1_held(lambda: dec.decode(jpgs))
     torch.cuda.synchronize()
     launches = counts()
     routes = {k: jb.ROUTES[k] - routes0[k] for k in routes0}
@@ -139,12 +162,16 @@ def main() -> int:
         raise RuntimeError(f"main path missed a kernel: {launches}")
     if routes != {"idx": BATCH, "dri": 0, "host": 0, "reissued": 0}:
         raise RuntimeError(f"main path did not take the idx route: {routes}")
+    if k1_main_err > 1:
+        raise RuntimeError(f"main path: K1 vs plain max |diff| "
+                           f"{k1_main_err} > 1")
     diff = max_diff(imgs, nic.Decoder(device="cpu").decode(jpgs[:SEEDS]))
     if diff > 1:
         raise RuntimeError(f"main path vs CPU host-route decode: {diff} > 1")
     phase("main_path", f"{BATCH}/{BATCH} CUDA uint8 [{H},{W},3] via idx "
           f"route; launches {launches}; all {BATCH} within {diff} of the "
-          f"CPU decode (native host entropy + plain pixel stage)")
+          f"CPU decode (native host entropy + plain pixel stage); K1 vs plain "
+          f"on every launch max |diff| {k1_main_err}")
 
     # K2's inputs for the full bucket and for a 4-image bucket
     frames = {i: jb.parse_jpeg_structure(d) for i, d in enumerate(jpgs)}
@@ -191,19 +218,27 @@ def main() -> int:
           f"{BATCH} samples); 0 err flags")
 
     # 6) K1 at the main path's shapes (zigzag coefficients from K2)
-    k1_err = 0
+    k1_err = k1_main_err
     k1_in = []
+    nat_of_zz = torch.from_numpy(ZIGZAG_NAT.astype(np.int64)).to(dev)
     for c, comp in zip(coefs, frames[0].components):
         x = c.contiguous()
         M = idct_matrix(frames[0].quant[comp.tq], dev)
         got = dequant_idct_blocks(x, M, 8, zigzag=True)
         want = dequant_idct_blocks_plain(x, M, 8, zigzag=True)
         k1_err = max(k1_err, int((got - want).abs().max()))
+        nat = torch.empty_like(x)
+        nat[..., nat_of_zz] = x  # the same blocks in natural order
+        if not torch.equal(dequant_idct_blocks(nat, M, 8, zigzag=False), got):
+            raise RuntimeError("K1: natural and zigzag input of the same "
+                               "blocks give different samples")
+        del want, nat
         k1_in.append((x, M))
     if k1_err > 1:
         raise RuntimeError(f"K1 kernel vs plain: max |diff| {k1_err} > 1")
     phase("K1", "shapes " + ", ".join(str(tuple(x.shape)) for x, _ in k1_in)
-          + f": max |kernel - plain| = {k1_err} (bar 1)")
+          + f": max |kernel - plain| = {k1_err} (bar 1); natural and zigzag "
+          "input give identical samples")
 
     # 7) the dri path: restart-marker streams through the Decoder
     dri = dri_phase(dec, dev)
@@ -221,8 +256,25 @@ def main() -> int:
     k1_plain_ms = sum(
         cuda_ms(lambda x=x, M=M: dequant_idct_blocks_plain(x, M, 8, True), 5)
         for x, M in k1_in)
+    # the library call beside K1: the same product in fp32, nothing else
+    k1_lib_ms = 0.0
+    for x, M in k1_in:
+        a32 = x.reshape(-1, 64).to(torch.float32)
+        mt = M.T.contiguous()
+        k1_lib_ms += cuda_ms(lambda a32=a32, mt=mt: torch.matmul(a32, mt), 20)
+        del a32
+    # K1's bound: every coefficient read and every int32 sample written
+    # once, M once a launch, against 2 * K * 64 fp32 operations a block
+    k1_blocks = [x.numel() // x.shape[-1] for x, _ in k1_in]
+    k1_bytes_ms = (sum(bytes_bound_ms(x, M) for x, M in k1_in)
+                   + sum(k1_blocks) * 64 * 4 / HBM_BYTES_PER_S * 1e3)
+    k1_ops_ms = sum(2 * x.numel() * 64 for x, _ in k1_in) / FP32_FLOPS * 1e3
+    k1_bound_ms = max(k1_bytes_ms, k1_ops_ms)
     k2_ms = cuda_ms(lambda: decode_segments(words, side, tables_d, R,
                                             comp_map), 10)
+    # K2 and K3 walk their bits in series with integer operations, for which
+    # the data sheet names no peak: their bound is the bytes alone
+    k2_bound_ms = bytes_bound_ms(words, side, tables_d, out, err)
     dec.decode(jpgs)
     torch.cuda.synchronize()
     reps = 3
@@ -232,9 +284,14 @@ def main() -> int:
     torch.cuda.synchronize()
     ips = reps * BATCH / (time.perf_counter() - t0)
     phase("times", f"on {card}: main path {ips:.1f} images/s; dri path "
-          f"{dri['ips']:.1f} images/s; K1 {k1_ms:.4f} ms (plain "
-          f"{k1_plain_ms:.4f}); K2 {k2_ms:.4f} ms (plain {k2_plain_ms:.1f}, "
-          f"one run); K2 on the dri bucket {dri['k2_ms']:.4f} ms")
+          f"{dri['ips']:.1f} images/s; K1's {launches['K1']} main-path "
+          f"launches together {k1_ms:.4f} ms (goal <= {K1_GOAL_MS}: "
+          f"{'met' if k1_ms <= K1_GOAL_MS else 'missed'}; torch.matmul "
+          f"{k1_lib_ms:.4f}; plain {k1_plain_ms:.4f}; bound "
+          f"{k1_bound_ms:.4f}, bytes {k1_bytes_ms:.4f} / operations "
+          f"{k1_ops_ms:.4f}); K2 {k2_ms:.4f} ms (plain {k2_plain_ms:.1f}, "
+          f"one run; bound by bytes {k2_bound_ms:.4f}); K2 on the dri bucket "
+          f"{dri['k2_ms']:.4f} ms")
     phase("times", f"on {card}: K3 per kind, summed over the scans of one "
           f"stream, kernel (plain, one run): " + "; ".join(
               f"{kd} {k3['ms'][kd]:.4f} ms ({k3['plain_ms'][kd]:.1f})"
@@ -245,15 +302,19 @@ def main() -> int:
           f"images/s "
           f"(x{prog_ips['device'] / prog_ips['host']:.3f})")
 
-    if "jax" in sys.modules:
-        raise RuntimeError("the port imported jax")
+    loaded = [m for m in sys.modules
+              if m == "jax" or m.split(".")[0] == "nvimagecodec_tpu"]
+    if loaded:
+        raise RuntimeError(f"the port imported {loaded[:4]}")
     print(json.dumps({"kernels": [
         {"name": "K1 dequant_idct_blocks", "route": "cuda",
          "source": "nvimagecodec_tpu_torch/csrc/idct.cu",
          "replaces": "nvimagecodec_tpu/ops/pallas_kernels.py:23",
          "launches": launches["K1"],
          "max_abs_err": max(k1_err, dri["k1_err"], prog_ips["k1_err"]),
-         "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
+         "bound_by": "bytes" if k1_bytes_ms >= k1_ops_ms else "operations",
+         "library_ms": k1_lib_ms,
          "launches_by_path": {"main": launches["K1"],
                               "dri": dri["launches"]["K1"],
                               "prog": prog_ips["launches"]["K1"]}},
@@ -262,7 +323,8 @@ def main() -> int:
          "replaces": "nvimagecodec_tpu/ops/pallas_entropy.py:120",
          "launches": launches["K2"], "max_abs_err": max(k2_err,
                                                          dri["k2_err"]),
-         "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+         "bound_by": "bytes", "library_ms": None,
          "launches_by_path": {"main": launches["K2"],
                               "dri": dri["launches"]["K2"]}},
         {"name": "K3 decode_prog_scan", "route": "cuda",
@@ -271,6 +333,7 @@ def main() -> int:
          "launches": prog_ips["launches"]["K3"], "max_abs_err": k3["err"],
          "ms": sum(k3["ms"].values()),
          "plain_ms": sum(k3["plain_ms"].values()),
+         "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "launches_by_path": {"prog": prog_ips["launches"]["K3"]}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -497,7 +560,11 @@ def k3_phase(streams, dev):
         de.decode_prog_scan = real
     ms = dict.fromkeys(K3_KINDS, 0.0)
     plain_ms = dict.fromkeys(K3_KINDS, 0.0)
-    for kind, args, _got, _want in timed:
+    bound_ms = 0.0
+    for kind, args, got, _want in timed:
+        # words, side, tables, the band where there is one; out and err
+        bound_ms += bytes_bound_ms(
+            *(a for a in args if isinstance(a, torch.Tensor)), *got)
         ms[kind] += cuda_ms(lambda: ek.decode_prog_scan(kind, *args), 20)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -508,7 +575,7 @@ def k3_phase(streams, dev):
     phase("K3", f"{len(streams)} streams x {len(timed)} scans, kinds "
           f"{sorted({c[0] for c in timed})}, out shapes {shapes}: bit-exact vs "
           f"plain (out and err, max |diff| {err}), 0 err flags")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 def prog_phase(streams, dev):

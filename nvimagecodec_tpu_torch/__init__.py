@@ -2,14 +2,16 @@
 
 The same Decoder/Encoder/Image/CodeStream surface as the JAX package, with
 hand-written Hopper kernels on the device path: K1 (dequant + IDCT,
-csrc/idct.cu) and K2 (baseline Huffman decode, csrc/huffman.cu). The host
-layer (parsers, core, native entropy and index scan, host codec plugins)
-is the JAX package's jax-free code, imported as it is. This package imports
-torch and never jax.
+csrc/idct.cu), K2 (baseline Huffman decode, csrc/huffman.cu) and K3
+(progressive Huffman decode, csrc/prog_huffman.cu). The host layer (parsers,
+core, native entropy and index scan, host codec plugins) is the port's own
+copy, module for module under the JAX package's names. This package imports
+torch, never jax and nothing of the JAX package.
 """
-from nvimagecodec_tpu.version import __version__  # noqa: F401
-from nvimagecodec_tpu.core.types import (  # noqa: F401
+from .version import __version__  # noqa: F401
+from .core.types import (  # noqa: F401
     Backend,
+    BackendKind,
     ChromaSubsampling,
     ColorSpec,
     JpegEncoding,
@@ -21,29 +23,28 @@ from nvimagecodec_tpu.core.types import (  # noqa: F401
     SampleFormat,
     Status,
 )
-from nvimagecodec_tpu.core.image_info import ImageInfo, PlaneInfo  # noqa: F401
-from nvimagecodec_tpu.core.interfaces import (  # noqa: F401
+from .core.image_info import ImageInfo, PlaneInfo  # noqa: F401
+from .core.interfaces import (  # noqa: F401
     DecodeParams,
     EncodeParams,
     Jpeg2kEncodeParams,
     JpegEncodeParams,
 )
-from nvimagecodec_tpu.core.code_stream import CodeStream  # noqa: F401
-from nvimagecodec_tpu.core.logger import (  # noqa: F401
+from .core.code_stream import CodeStream  # noqa: F401
+from .core.logger import (  # noqa: F401
     DebugMessageCategory,
     DebugMessageData,
     DebugMessageSeverity,
     register_debug_messenger,
     unregister_debug_messenger,
 )
-from nvimagecodec_tpu.core.thread_pool import PriorityThreadPool  # noqa: F401
-from nvimagecodec_tpu.core.registry import CodecRegistry  # noqa: F401
-from nvimagecodec_tpu.codecs.webp_anim import (  # noqa: F401
+from .core.thread_pool import PriorityThreadPool  # noqa: F401
+from .core.registry import CodecRegistry  # noqa: F401
+from .codecs.webp_anim import (  # noqa: F401
     decode_webp_animation,
     encode_webp_animation,
 )
 
-from .core.types import BackendKind  # noqa: F401
 from .codecs import port_registry  # noqa: F401
 from .api import Decoder, Encoder  # noqa: F401
 from .image import Image, as_image, as_images, from_dlpack  # noqa: F401

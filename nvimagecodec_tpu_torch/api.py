@@ -2,10 +2,10 @@
 
 The port of nvimagecodec_tpu/api.py. `Decoder(device=...)` decodes JPEG on
 that device ("cuda" unless told otherwise; the CPU only when asked for, never
-by detection); other formats decode on the host through the reused plugins
+by detection); other formats decode on the host through the host plugins
 and come back as CPU tensors. Failed samples come back as None. EXIF
 orientation, ROI crop, GRAY and sample-format/type conversion follow the
-reference (api.py:97-151). `Encoder` goes through the reused host encoders.
+reference (api.py:97-151). `Encoder` goes through the host encoders.
 """
 from __future__ import annotations
 
@@ -15,17 +15,38 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from nvimagecodec_tpu.api import _EXT_TO_CODEC
-from nvimagecodec_tpu.core.code_stream import CodeStream
-from nvimagecodec_tpu.core.interfaces import DecodeParams, EncodeParams
-from nvimagecodec_tpu.core.registry import CodecRegistry
-from nvimagecodec_tpu.core.types import Backend, ColorSpec, ProcessingStatus
-
 from .codecs import port_registry
 from .codecs.jpeg import JpegHybridCudaDecoder
+from .core.code_stream import CodeStream
+from .core.interfaces import DecodeParams, EncodeParams
+from .core.registry import CodecRegistry
 from .core.scheduler import GenericDecoder, GenericEncoder
+from .core.types import Backend, ColorSpec, ProcessingStatus
 from .image import Image, apply_exif_orientation, as_image, as_tensor
 from .ops.convert import convert, luma_bt601
+
+_EXT_TO_CODEC = {
+    ".bmp": "bmp",
+    ".ppm": "pnm",
+    ".pgm": "pnm",
+    ".pbm": "pnm",
+    ".pnm": "pnm",
+    ".jpg": "jpeg",
+    ".jpeg": "jpeg",
+    ".jp2": "jpeg2k",
+    ".j2k": "jpeg2k",
+    "jp2": "jpeg2k",
+    "j2k": "jpeg2k",
+    "jpeg2000": "jpeg2k",
+    "jpg": "jpeg",
+    "png": "png",
+    ".png": "png",
+    ".tif": "tiff",
+    "tif": "tiff",
+    ".tiff": "tiff",
+    ".webp": "webp",
+    "webp": "webp",
+}
 
 Source = Union[bytes, bytearray, memoryview, str, os.PathLike, CodeStream]
 
@@ -96,7 +117,7 @@ class Decoder:
 
 
 class Encoder:
-    """Batched image encoder through the reused host encoders."""
+    """Batched image encoder through the host encoders."""
 
     def __init__(self, backends: Optional[Sequence[Backend]] = None,
                  options: str = "", max_num_cpu_threads: int = 0,

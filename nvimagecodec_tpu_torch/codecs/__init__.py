@@ -1,23 +1,18 @@
 """The port's codec registry.
 
-Registers the reused parsers and host plugins of nvimagecodec_tpu (BMP,
-PNM, PNG, TIFF, WebP, the system-library rungs, the JPEG CPU and lossless
-decoders and the CPU JPEG encoder) and the port's own JPEG plugin. It never
-calls the reference's `register_builtin_codecs`, which registers the TPU
-plugins.
+Registers the port's parsers and plugins: the host codecs (BMP, PNM, PNG,
+TIFF, WebP, the system-library rungs, the JPEG CPU and lossless decoders and
+the CPU JPEG encoder; the counterpart of nvimagecodec_tpu/codecs/__init__.py)
+and the GPU JPEG plugin. JPEG2000 decodes through the system-openjpeg rung
+only until its host stack is ported.
 """
 from __future__ import annotations
 
-import threading
-from typing import Optional
-
-from nvimagecodec_tpu.codecs import png, system_codecs, tiff, webp
-from nvimagecodec_tpu.codecs.bmp import BmpDecoder, BmpEncoder
-from nvimagecodec_tpu.codecs.pnm import PnmDecoder, PnmEncoder
-from nvimagecodec_tpu.core.registry import CodecRegistry
-from nvimagecodec_tpu.parsers import ALL_PARSERS
-
-from . import jpeg
+from ..core.registry import CodecRegistry, global_registry
+from ..parsers import ALL_PARSERS
+from . import jpeg, png, system_codecs, tiff, webp
+from .bmp import BmpDecoder, BmpEncoder
+from .pnm import PnmDecoder, PnmEncoder
 
 
 def register_port_codecs(registry: CodecRegistry) -> None:
@@ -37,16 +32,6 @@ def register_port_codecs(registry: CodecRegistry) -> None:
     system_codecs.register(registry)
 
 
-_registry: Optional[CodecRegistry] = None
-_lock = threading.Lock()
-
-
 def port_registry() -> CodecRegistry:
     """The port's registry, built at first use."""
-    global _registry
-    with _lock:
-        if _registry is None:
-            reg = CodecRegistry()
-            register_port_codecs(reg)
-            _registry = reg
-        return _registry
+    return global_registry()

@@ -1,28 +1,177 @@
-"""JPEG decoder plugin of the CUDA port.
+"""JPEG codec backends of the CUDA port.
 
-`cuda_jpeg_hybrid_decoder` (HYBRID_CPU_GPU, HIGH): host parse, index scan
-and entropy decode where needed, GPU kernels for Huffman decode and the
-pixel stage (codecs/jpeg/batch.py). It is the port of
-nvimagecodec_tpu/codecs/jpeg/__init__.py (:177-217, :337-353). The CPU
-decoders, lossless decoder and CPU encoder below it on the ladder are the
-reference's host plugins, reused.
+The port of nvimagecodec_tpu/codecs/jpeg/__init__.py (the modelled library's
+nvjpeg extension: extensions/nvjpeg/ — HW/CUDA/lossless decoders + CUDA
+encoder, priority ladder at nvjpeg_ext.cpp:42-47). The ladder:
+
+- `cuda_jpeg_hybrid_decoder` (HYBRID_CPU_GPU, HIGH): host parse, index scan
+  and entropy decode where needed, GPU kernels for Huffman decode and the
+  pixel stage (codecs/jpeg/batch.py);
+- `cpu_jpeg_decoder` (CPU_ONLY, NORMAL): native host entropy decode (Python
+  fallback) + the port's pixel stage on CPU tensors, where K1 takes its plain
+  version; true ROI decode. Within 1 of the JAX package's numpy decoder,
+  exact with `bitexact`;
+- the lossless decoder (codecs/jpeg/lossless.py) and `cpu_jpeg_encoder`
+  (host pixel stage + native Huffman, codecs/jpeg/encode.py). The device
+  encode stage is not ported yet.
 """
 from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
-from nvimagecodec_tpu.codecs.jpeg import (
-    JpegCpuDecoder,
-    JpegCpuEncoder,
-    _JpegDecoderBase,
+from ...core.interfaces import (
+    DecodeParams,
+    DecodeResult,
+    DecoderPlugin,
+    EncodeResult,
+    EncoderPlugin,
 )
-from nvimagecodec_tpu.core.interfaces import DecodeResult
-from nvimagecodec_tpu.core.options import get_bool
-from nvimagecodec_tpu.core.types import Priority
+from ...core.options import get_bool
+from ...core.types import BackendKind, ColorSpec, Priority, ProcessingStatus
+from .headers import JpegFrame, parse_jpeg_structure
+from .pixel import assemble_image_i32, cmyk_to_rgb_i32, idct_planes
 
-from ...core.types import BackendKind
+
+def _entropy_decode(frame: JpegFrame, data: bytes):
+    """Native C++ entropy decoder when available, Python reference otherwise."""
+    try:
+        from .native import decode_coefficients_native
+
+        return decode_coefficients_native(frame, data)
+    except Exception:
+        from .entropy_py import decode_coefficients
+
+        return decode_coefficients(frame, data)
+
+
+def _supported(frame: JpegFrame) -> ProcessingStatus:
+    if frame.is_lossless:
+        return ProcessingStatus.FAIL | ProcessingStatus.ENCODING_UNSUPPORTED
+    if frame.marker in (0xCB, 0xCD, 0xCE, 0xCF, 0xC5, 0xC6, 0xC7):
+        # differential / lossless-arithmetic stay unsupported; sequential
+        # and progressive arithmetic (0xC9/0xCA) decode natively
+        return ProcessingStatus.FAIL | ProcessingStatus.ENCODING_UNSUPPORTED
+    if frame.precision not in (8, 12):
+        return ProcessingStatus.FAIL | ProcessingStatus.SAMPLE_TYPE_UNSUPPORTED
+    if len(frame.components) not in (1, 3, 4):
+        return ProcessingStatus.FAIL | ProcessingStatus.NUM_CHANNELS_UNSUPPORTED
+    return ProcessingStatus.SUCCESS
+
+
+_SUPPORTED_ENCODINGS = {0xC0, 0xC1, 0xC2, 0xC9, 0xCA}  # Huffman + arithmetic (T.81 Annex K)
+
+
+def _roi_ok(info, params) -> bool:
+    """Codec-level ROI is only sound when the region coordinates are in
+    stream space — an EXIF-rotated image whose orientation will be applied
+    afterwards must decode fully and crop at the API layer."""
+    if not (params.enable_roi and params.region is not None):
+        return False
+    if not params.apply_exif_orientation:
+        return True
+    o = getattr(info, "orientation", None)
+    return o is None or int(o) == 1  # Orientation.NORMAL
+
+
+class _JpegDecoderBase(DecoderPlugin):
+    codec = "jpeg"
+    bitexact = False  # integer islow IDCT: byte-exact vs libjpeg-turbo
+
+    def can_decode(self, data_batch, info_batch, params) -> List[ProcessingStatus]:
+        # Judge from the already-parsed ImageInfo (cached by CodeStream) —
+        # re-parsing the full structure here doubled the host cost of the
+        # hot path (reference likewise reuses parsed stream info in
+        # canDecode, extensions/nvjpeg/cuda_decoder.cpp:124-174).
+        out = []
+        for data, info in zip(data_batch, info_batch):
+            try:
+                if info is None or info.codec != "jpeg":
+                    frame = parse_jpeg_structure(bytes(data))
+                    out.append(_supported(frame))
+                    continue
+                enc = int(info.jpeg_encoding)
+                if enc not in _SUPPORTED_ENCODINGS:
+                    out.append(
+                        ProcessingStatus.FAIL
+                        | ProcessingStatus.ENCODING_UNSUPPORTED
+                    )
+                elif info.planes and info.planes[0].precision not in (0, 8, 12):
+                    out.append(
+                        ProcessingStatus.FAIL
+                        | ProcessingStatus.SAMPLE_TYPE_UNSUPPORTED
+                    )
+                elif info.num_planes not in (1, 3, 4):
+                    out.append(
+                        ProcessingStatus.FAIL
+                        | ProcessingStatus.NUM_CHANNELS_UNSUPPORTED
+                    )
+                else:
+                    out.append(ProcessingStatus.SUCCESS)
+            except Exception:
+                out.append(ProcessingStatus.FAIL | ProcessingStatus.IMAGE_CORRUPTED)
+        return out
+
+    def _decode_one(self, data: bytes, params: DecodeParams,
+                    roi_ok: bool = True) -> torch.Tensor:
+        """One stream → image [H, W(, C)] on the CPU, through the port's
+        pixel stage."""
+        frame = parse_jpeg_structure(data)
+        img = None
+        if roi_ok and params.enable_roi and params.region is not None:
+            # True ROI: entropy-skip + windowed pixel stage (reference: nvjpeg
+            # ROI, extensions/nvjpeg/cuda_decoder.cpp:460-520). Falls back to
+            # full decode (API-level crop) on unsupported streams.
+            try:
+                from .roi import decode_pixels_roi
+
+                img = decode_pixels_roi(
+                    frame, data, params.region,
+                    fancy=getattr(self, "fancy_upsampling", True),
+                    bitexact=self.bitexact,
+                )
+            except Exception:
+                img = None
+        if img is None:
+            coefs = [torch.from_numpy(c) for c in _entropy_decode(frame, data)]
+            planes = idct_planes(frame, coefs, bitexact=self.bitexact)
+            img = assemble_image_i32(frame, planes)
+        narrow = frame.precision <= 8
+        if not narrow and not params.allow_any_depth:
+            # default u8 output (reference python default,
+            # python/decoder.cpp:156-225; allow_any_depth keeps u16)
+            img = img >> (frame.precision - 8)
+            narrow = True
+        if img.dim() == 3 and img.shape[-1] == 4:
+            # CMYK/YCCK → RGB by default; UNCHANGED keeps native channels
+            # (reference: color_spec routing, python/decoder.cpp:156-225)
+            cs = getattr(params, "color_spec", None)
+            if not (cs is not None and int(cs) == int(ColorSpec.UNCHANGED)):
+                img = cmyk_to_rgb_i32(img) & 0xFF
+                narrow = True
+        return img.to(torch.uint8 if narrow else torch.uint16)
+
+    def decode_batch(self, data_batch, info_batch, params) -> List[DecodeResult]:
+        out = []
+        for data, info in zip(data_batch, info_batch):
+            try:
+                out.append(
+                    DecodeResult(
+                        ProcessingStatus.SUCCESS,
+                        self._decode_one(bytes(data), params,
+                                         roi_ok=_roi_ok(info, params)),
+                    )
+                )
+            except Exception as e:
+                out.append(
+                    DecodeResult(
+                        ProcessingStatus.FAIL | ProcessingStatus.IMAGE_CORRUPTED,
+                        error=str(e),
+                    )
+                )
+        return out
 
 
 class JpegHybridCudaDecoder(_JpegDecoderBase):
@@ -34,7 +183,6 @@ class JpegHybridCudaDecoder(_JpegDecoderBase):
     priority = Priority.HIGH
     fancy_upsampling = True
     device = torch.device("cuda")
-    mesh = None  # the reused scheduler sets it; the port has no mesh yet
 
     def set_options(self, opts) -> None:
         self.device = torch.device(opts.get("device", "cuda"))
@@ -51,11 +199,75 @@ class JpegHybridCudaDecoder(_JpegDecoderBase):
                                  bitexact=self.bitexact)
 
 
+class JpegCpuDecoder(_JpegDecoderBase):
+    plugin_id = "cpu_jpeg_decoder"
+    backend_kind = BackendKind.CPU_ONLY
+    priority = Priority.NORMAL
+
+    def set_options(self, opts) -> None:
+        # bitexact=true: integer islow IDCT — decodes match libjpeg-turbo
+        # byte-exactly
+        self.bitexact = get_bool(opts, "bitexact", False)
+
+
+class JpegCpuEncoder(EncoderPlugin):
+    codec = "jpeg"
+    plugin_id = "cpu_jpeg_encoder"
+    backend_kind = BackendKind.CPU_ONLY
+    priority = Priority.NORMAL
+
+    def can_encode(self, image_batch, info_batch, params) -> List[ProcessingStatus]:
+        out = []
+        for img in image_batch:
+            a = np.asarray(img)
+            ok = a.dtype in (np.uint8, np.uint16) and (
+                a.ndim == 2 or a.shape[-1] in (1, 3)
+            )
+            out.append(
+                ProcessingStatus.SUCCESS
+                if ok
+                else ProcessingStatus.FAIL | ProcessingStatus.SAMPLE_TYPE_UNSUPPORTED
+            )
+        return out
+
+    def encode_batch(self, image_batch, info_batch, params) -> List[EncodeResult]:
+        # fan samples over a thread pool (numpy pixel stage + GIL-releasing
+        # native entropy encode — the executor fan-out analog,
+        # extensions/nvjpeg/cuda_encoder.cpp per-sample tasks)
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .encode import encode_jpeg
+
+        def one(img):
+            return encode_jpeg(np.asarray(img), params)
+
+        if len(image_batch) > 1:
+            with ThreadPoolExecutor(
+                max_workers=min(len(image_batch), os.cpu_count() or 2)
+            ) as pool:
+                futs = [pool.submit(one, img) for img in image_batch]
+                out = []
+                for f in futs:
+                    try:
+                        out.append(EncodeResult(ProcessingStatus.SUCCESS, f.result()))
+                    except Exception as e:
+                        out.append(EncodeResult(ProcessingStatus.FAIL, error=str(e)))
+                return out
+        out = []
+        for img in image_batch:
+            try:
+                out.append(EncodeResult(ProcessingStatus.SUCCESS, one(img)))
+            except Exception as e:
+                out.append(EncodeResult(ProcessingStatus.FAIL, error=str(e)))
+        return out
+
+
 def register(registry) -> None:
+    from .lossless import JpegLosslessDecoder
+
     codec = registry.codec("jpeg")
     codec.register_decoder(JpegHybridCudaDecoder())
     codec.register_decoder(JpegCpuDecoder())
-    from nvimagecodec_tpu.codecs.jpeg.lossless import JpegLosslessDecoder
-
     codec.register_decoder(JpegLosslessDecoder())
     codec.register_encoder(JpegCpuEncoder())

@@ -39,12 +39,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from nvimagecodec_tpu.codecs.jpeg.headers import parse_jpeg_structure
-from nvimagecodec_tpu.codecs.jpeg.native import decode_coefficients_into
-from nvimagecodec_tpu.core.interfaces import DecodeParams, DecodeResult
-from nvimagecodec_tpu.core.types import ColorSpec, ProcessingStatus
-
+from ...core.interfaces import DecodeParams, DecodeResult
 from ...core.trace import span
+from ...core.types import ColorSpec, ProcessingStatus
 from ...ops.entropy_kernels import decode_segments, huffman_tables
 from .device_entropy import (
     decode_progressive_device,
@@ -59,6 +56,8 @@ from .device_entropy import (
     staged_tables,
     upload,
 )
+from .headers import parse_jpeg_structure
+from .native import decode_coefficients_into
 from .pixel import assemble_image_i32, finish_image, geometry_key, idct_planes
 
 # a bucket smaller than this takes the host route (the reference's value,

@@ -1,8 +1,9 @@
-"""Device entropy routes: host glue reused, device work on tensors.
+"""Device entropy routes: host glue in numpy, device work on tensors.
 
-The host half of nvimagecodec_tpu/codecs/jpeg/device_entropy.py (route
-plan, native index scan, restart-marker split, word packing) is numpy and
-ctypes, and is imported unchanged. This module adds the torch half:
+The host half (route plan, native index scan, word packing) is the numpy
+and ctypes code of nvimagecodec_tpu/codecs/jpeg/device_entropy.py, copied:
+`device_entropy_plan`, `frame_segments`, `index_scan_batch`,
+`pack_indexed_batch`, `indexed_words_needed_batch`. The torch half:
 
 - `stage` / `upload`: pinned host staging and its asynchronous upload;
 - `split_staged`: the restart-marker split of scans into staged words and
@@ -17,28 +18,166 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from nvimagecodec_tpu.codecs.jpeg.device_entropy import (  # noqa: F401
-    device_entropy_plan,
-    index_scan_batch,
-    indexed_words_needed_batch,
-    frame_segments,
-    pack_indexed_batch,
-)
-from nvimagecodec_tpu.native import lib as native_lib
-from nvimagecodec_tpu.ops.pallas_entropy import make_side, prog_scan_specs
-
 from ...core import trace
 from ...core.trace import span
+from ...native import lib as native_lib
 from ...ops.entropy_kernels import (
     decode_prog_scan,
+    entropy_kernel_spec,
+    make_side,
     prog_scan_kind,
+    prog_scan_specs,
     prog_scan_tables,
 )
+from .headers import JpegFrame
+from .pixel import geometry_key
+
+
+def device_entropy_key(frame: JpegFrame):
+    """Extended bucket key: geometry + DRI + scan/table content (one K2
+    launch reads one set of Huffman tables)."""
+    try:
+        R, comp_map, tables, total = entropy_kernel_spec(frame)
+    except ValueError:
+        return None
+    mcus_x = -(-frame.width // (8 * frame.hmax))
+    if R % mcus_x != 0:
+        return None  # need whole-MCU-row segments for the static reassembly
+    return (geometry_key(frame), R, comp_map, tables)
+
+
+def device_entropy_plan(frame: JpegFrame):
+    """Route description for the on-device entropy decoder, or None when
+    the stream must take the host path. Returns (kind, key, R, nsegs):
+
+    - kind "dri": the stream has restart markers — segments are the restart
+      intervals, byte-aligned, DC predictors reset (T.81 §F.2.1.3).
+    - kind "idx": baseline stream WITHOUT restart markers — the host index
+      scan (tic_jpeg_index_scan) finds MCU-row split bits + DC predictor
+      seeds, so the kernel still decodes one MCU row per lane: no special
+      bitstream required (the modelled library needs its HW engine for
+      this, extensions/nvjpeg/hw_decoder.cpp:349-404).
+
+    Memoized on the frame object — the batch router calls this per sample.
+    """
+    p = getattr(frame, "_de_plan", False)
+    if p is not False:
+        return p
+    p = _device_entropy_plan_uncached(frame)
+    frame._de_plan = p
+    return p
+
+
+def _device_entropy_plan_uncached(frame: JpegFrame):
+    mcus_x = -(-frame.width // (8 * frame.hmax))
+    mcus_y = -(-frame.height // (8 * frame.vmax))
+    if frame.restart_interval > 0:
+        key = device_entropy_key(frame)
+        if key is None:
+            return None
+        nsegs, _ = frame_segments(frame)
+        return ("dri", key, frame.restart_interval, nsegs)
+    R = mcus_x  # one MCU row per segment: max lane parallelism, min W
+    try:
+        spec = entropy_kernel_spec(frame, R)
+    except ValueError:
+        return None
+    return ("idx", (geometry_key(frame), R, spec[1], spec[2]), R, mcus_y)
+
+
+def frame_segments(frame: JpegFrame) -> Tuple[int, int]:
+    """(nsegs, total_mcus) for one frame."""
+    R = frame.restart_interval
+    mcus_x = -(-frame.width // (8 * frame.hmax))
+    mcus_y = -(-frame.height // (8 * frame.vmax))
+    total = mcus_x * mcus_y
+    return -(-total // R), total
+
+
+def index_scan_batch(frames, raws, idxs, rows_per_seg: int, nsegs: int,
+                     nthreads: int):
+    """Batched host index scan: every image of a geometry bucket in one
+    native call (native/jpeg_entropy.cpp tic_jpeg_index_scan_batch) with
+    internal work-stealing threads — replaces the per-image ctypes +
+    thread-pool round trip. Returns {i: (destuffed, dlen, bits, preds)}
+    with None entries for images the scanner declined."""
+    L = native_lib()
+    n = len(idxs)
+    if n == 0:
+        return {}
+    max_segs = nsegs + 1
+    datas = (ctypes.c_char_p * n)(*[raws[i] for i in idxs])
+    lens = np.asarray([len(raws[i]) for i in idxs], np.int64)
+    offs = np.zeros(n + 1, np.int64)
+    for k, i in enumerate(idxs):
+        sc = frames[i].scans[0]
+        offs[k + 1] = offs[k] + int(sc.data_end - sc.data_start) + 8
+    arena = np.empty(int(offs[-1]), np.uint8)
+    dlens = np.zeros(n, np.int64)
+    bits = np.zeros((n, max_segs), np.int64)
+    preds = np.zeros((n, max_segs * 4), np.int32)
+    nout = np.zeros(n, np.int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    L.tic_jpeg_index_scan_batch(
+        n, datas, lens.ctypes.data_as(i64p), rows_per_seg,
+        arena.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        offs.ctypes.data_as(i64p), dlens.ctypes.data_as(i64p),
+        bits.ctypes.data_as(i64p), preds.ctypes.data_as(i32p),
+        max_segs, nout.ctypes.data_as(i32p), nthreads)
+    out = {}
+    for k, i in enumerate(idxs):
+        if nout[k] != nsegs:
+            out[i] = None
+            continue
+        m = int(nout[k])
+        out[i] = (arena[offs[k]:offs[k + 1]], int(dlens[k]),
+                  bits[k, :m], preds[k, :m * 4].reshape(m, 4))
+    return out, (arena, offs, dlens, bits, preds, nout)
+
+
+def pack_indexed_batch(arena, offs, dlens, bits, ks, nsegs: int,
+                       words: np.ndarray, max_words: int,
+                       start_bits: np.ndarray, nthreads: int):
+    """Pack sub-bucket images (rows ks of the scan-batch arrays) into the
+    [W, S] matrix in one native call. Returns the list of sub-local j
+    indices whose segments overflowed max_words."""
+    L = native_lib()
+    n = len(ks)
+    max_segs = bits.shape[1]
+    offs_sub = np.ascontiguousarray(offs[ks], np.int64)
+    dlens_sub = np.ascontiguousarray(dlens[ks], np.int64)
+    bits_sub = np.ascontiguousarray(bits[ks])
+    rcs = np.zeros(n, np.int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    L.tic_jpeg_pack_indexed_batch(
+        n, arena.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        offs_sub.ctypes.data_as(i64p), dlens_sub.ctypes.data_as(i64p),
+        bits_sub.ctypes.data_as(i64p), max_segs, nsegs,
+        words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        words.shape[1], max_words,
+        start_bits.ctypes.data_as(i32p), rcs.ctypes.data_as(i32p),
+        nthreads)
+    return [int(j) for j in np.flatnonzero(rcs)]
+
+
+def indexed_words_needed_batch(dlens: np.ndarray, bits: np.ndarray,
+                               nsegs: int) -> int:
+    """Vectorized max words-per-segment over scan-batch rows (valid rows
+    only — caller pre-selects)."""
+    end_bits = np.empty_like(bits[:, :nsegs])
+    end_bits[:, :-1] = bits[:, 1:nsegs]
+    end_bits[:, -1] = dlens * 8
+    w0 = bits[:, :nsegs] // 32
+    w1 = np.minimum((end_bits + 96 + 31) // 32,
+                    ((dlens + 3) // 4)[:, None])
+    return int(np.maximum(w1 - w0, 1).max()) if len(dlens) else 1
 
 
 def stage(shape, dtype, device) -> torch.Tensor:

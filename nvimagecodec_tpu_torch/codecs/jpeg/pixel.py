@@ -8,15 +8,38 @@ batch-agnostic: coefficient stacks are [..., bh, bw, K] and planes
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
+import numpy as np
 import torch
 
-from nvimagecodec_tpu.codecs.jpeg.pixel import ZIGZAG_NAT, geometry_key  # noqa: F401
 from ...ops import color as color_ops
 from ...ops import resample as resample_ops
 from ...ops.dct import idct_islow_blocks
-from ...ops.kernels import dequant_idct_blocks, idct_matrix, to_natural
+from ...ops.kernels import (  # noqa: F401
+    ZIGZAG_NAT,
+    dequant_idct_blocks,
+    idct_matrix,
+    to_natural,
+)
+from .headers import JpegFrame
+
+GeomKey = Tuple
+
+
+def geometry_key(frame: JpegFrame) -> GeomKey:
+    """Everything a bucket's pixel stage depends on. Memoized on the frame
+    object — batch bucketing and routing call this per sample."""
+    k = getattr(frame, "_geom_key", None)
+    if k is None:
+        comps = tuple(
+            (c.h, c.v, np.asarray(frame.quant[c.tq]).tobytes())
+            for c in frame.components
+        )
+        k = (frame.width, frame.height, frame.precision, comps,
+             frame.adobe_transform)
+        frame._geom_key = k
+    return k
 
 
 def planes_from_blocks(blocks: torch.Tensor, bh: int, bw: int):

@@ -12,8 +12,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nvimagecodec_tpu.core.image_info import ImageInfo
-from nvimagecodec_tpu.core.types import Orientation
+from .core.image_info import ImageInfo
+from .core.types import Orientation
 
 
 def as_tensor(a) -> torch.Tensor:

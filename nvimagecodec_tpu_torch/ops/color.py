@@ -8,21 +8,22 @@ from __future__ import annotations
 
 import torch
 
-from nvimagecodec_tpu.ops.color import (
-    _FIX_0_08131,
-    _FIX_0_11400,
-    _FIX_0_16874,
-    _FIX_0_29900,
-    _FIX_0_33126,
-    _FIX_0_34414,
-    _FIX_0_41869,
-    _FIX_0_50000,
-    _FIX_0_58700,
-    _FIX_0_71414,
-    _FIX_1_40200,
-    _FIX_1_77200,
-    _ONE_HALF,
-)
+# round(coef * 2^16)
+_FIX_1_40200 = 91881
+_FIX_0_34414 = 22554
+_FIX_0_71414 = 46802
+_FIX_1_77200 = 116130
+
+_FIX_0_29900 = 19595
+_FIX_0_58700 = 38470
+_FIX_0_11400 = 7471
+_FIX_0_16874 = 11059
+_FIX_0_33126 = 21709
+_FIX_0_50000 = 32768
+_FIX_0_41869 = 27439
+_FIX_0_08131 = 5329
+
+_ONE_HALF = 1 << 15
 
 
 def ycbcr_to_rgb_i32(y, cb, cr, maxval: int = 255):

@@ -11,10 +11,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nvimagecodec_tpu.core.types import SampleDataType, SampleFormat
-from nvimagecodec_tpu.ops.convert import _FLOAT, _SIGNED, _max_of
-
+from ..core.types import SampleDataType, SampleFormat
 from .color import rgb_to_ycbcr_i32
+
+_UNSIGNED = {
+    SampleDataType.UINT8: 255.0,
+    SampleDataType.UINT16: 65535.0,
+    SampleDataType.UINT32: 4294967295.0,
+}
+_SIGNED = {
+    SampleDataType.INT8: 127.0,
+    SampleDataType.INT16: 32767.0,
+    SampleDataType.INT32: 2147483647.0,
+}
+_FLOAT = (SampleDataType.FLOAT16, SampleDataType.FLOAT32, SampleDataType.FLOAT64)
+
+
+def _max_of(t: SampleDataType) -> float:
+    if t in _UNSIGNED:
+        return _UNSIGNED[t]
+    if t in _SIGNED:
+        return _SIGNED[t]
+    return 1.0  # floats are normalized
 
 _TORCH = {
     SampleDataType.UINT8: torch.uint8,

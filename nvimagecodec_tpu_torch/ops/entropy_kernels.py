@@ -13,8 +13,8 @@ vectorised over lanes with one symbol step per iteration.
 `_build_prog_kernel` (csrc/prog_huffman.cu; plain version
 `decode_prog_scan_plain`).
 
-`huffman_tables` turns the reference's numpy table form
-(`entropy_kernel_spec`, maxcode/base/values per component) into the int32
+`huffman_tables` turns the numpy table form of `entropy_kernel_spec`
+(maxcode/base/values per component) into the int32
 table tensor both K2 versions read; `prog_scan_tables` builds K3's from a
 scan's own table snapshot.
 """
@@ -26,11 +26,131 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from nvimagecodec_tpu.ops.pallas_entropy import entropy_kernel_spec
-
 from .. import _build
 
 TAB_HEADER = 34  # maxcode[17] + base[17]
+
+# Host glue of the kernels, numpy only: the scope checks and table forms of
+# nvimagecodec_tpu/ops/pallas_entropy.py (`entropy_kernel_spec`, `make_side`,
+# `prog_scan_specs`), copied so that both packages route and pack alike.
+
+_TABLES_CACHE: dict = {}
+
+
+def _build_tables(frame):
+    """Per table class: (maxcode[17], base[17], values[nvals]) with
+    base[l] = valptr[l] - mincode[l] so sym_idx = code + base[len].
+    Content-cached: corpora typically share Huffman tables across frames,
+    and this runs per sample on the routing path."""
+    fp = tuple(
+        (tc, tid, bytes(t.bits), bytes(t.values))
+        for tc, tabs in enumerate((frame.dc_huff, frame.ac_huff))
+        for tid, t in sorted(tabs.items())
+    )
+    hit = _TABLES_CACHE.get(fp)
+    if hit is not None:
+        return hit
+    classes = []
+    for tc in (0, 1):  # 0 = DC, 1 = AC
+        per_id = {}
+        tabs = frame.dc_huff if tc == 0 else frame.ac_huff
+        for tid, t in tabs.items():
+            code = 0
+            k = 0
+            maxcode = [-1] * 17
+            base = [0] * 17
+            for l in range(1, 17):
+                n = t.bits[l - 1]
+                base[l] = k - code
+                code += n
+                k += n
+                maxcode[l] = code - 1 if n else -1
+                code <<= 1
+            per_id[tid] = (tuple(maxcode), tuple(base),
+                           tuple(int(v) for v in t.values))
+        classes.append(per_id)
+    if len(_TABLES_CACHE) > 4096:
+        _TABLES_CACHE.clear()
+    _TABLES_CACHE[fp] = classes
+    return classes  # [dc_tables, ac_tables]
+
+
+def entropy_kernel_spec(frame, R: int = 0) -> Tuple:
+    """Static bucket description: (R, comp_map, tables, total MCUs).
+    `R` = MCUs per segment; 0 means use the frame's restart interval (DRI
+    streams) — for streams without restart markers the caller picks R from
+    the host index scan's split stride. Raises ValueError when the stream
+    shape is outside kernel support."""
+    if frame.is_progressive or frame.is_lossless or frame.precision != 8:
+        raise ValueError("device entropy: baseline 8-bit only")
+    if R <= 0:
+        R = frame.restart_interval
+    if R <= 0:
+        raise ValueError("device entropy: needs a segment stride")
+    if (len(frame.scans) != 1
+            or len(frame.scans[0].comp_indices) != len(frame.components)):
+        raise ValueError("device entropy: one interleaved scan only")
+    if len(frame.components) == 1:
+        c = frame.components[0]
+        if c.h != 1 or c.v != 1:
+            # T.81: single-component scans are non-interleaved (sampling
+            # factors don't group blocks into MCUs)
+            raise ValueError("device entropy: 1-comp scans need h=v=1")
+    comp_map = []
+    for ci, c in enumerate(frame.components):
+        if c.h > 4 or c.v > 4:
+            raise ValueError("device entropy: h/v factors <= 4 (T.81 B.2.2)")
+        comp_map.extend([ci] * (c.h * c.v))
+    scan = frame.scans[0]
+    dc_tabs, ac_tabs = _build_tables(frame)
+    tables = tuple(
+        (dc_tabs[scan.dc_tables[ci]], ac_tabs[scan.ac_tables[ci]])
+        for ci in range(len(frame.components))
+    )
+    mcus_x = -(-frame.width // (8 * frame.hmax))
+    mcus_y = -(-frame.height // (8 * frame.vmax))
+    return (R, tuple(comp_map), tables, mcus_x * mcus_y)
+
+
+def make_side(seg_mcus: np.ndarray, start_bits=None,
+              dc0=None) -> np.ndarray:
+    """Assemble the kernel's [6, S] int32 sideband from per-lane MCU
+    counts, optional start bits, and optional [4, S] DC predictor seeds
+    (both zero for restart-marker segments)."""
+    S = seg_mcus.shape[-1]
+    side = np.zeros((6, S), np.int32)
+    side[0] = seg_mcus.reshape(-1)
+    if start_bits is not None:
+        side[1] = start_bits.reshape(-1)
+    if dc0 is not None:
+        side[2:6] = dc0
+    return side
+
+
+def prog_scan_specs(frame):
+    """Validate a progressive frame for the device path; returns per-scan
+    (is_dc, comp_map_or_comp, R_units) metadata. Raises ValueError when
+    any scan is outside kernel support."""
+    if not frame.is_progressive or frame.precision != 8:
+        raise ValueError("prog device entropy: 8-bit progressive only")
+    specs = []
+    for s in frame.scans:
+        if s.restart_interval <= 0:
+            raise ValueError("prog device entropy: needs restart markers")
+        if s.ss == 0:
+            if s.se != 0:
+                raise ValueError("prog device entropy: bad DC scan")
+            if len(s.comp_indices) != len(frame.components):
+                raise ValueError("prog device entropy: partial DC scan")
+            for c in frame.components:
+                if c.h > 4 or c.v > 4:
+                    raise ValueError("prog device entropy: h/v <= 4")
+        else:
+            if len(s.comp_indices) != 1:
+                raise ValueError("prog device entropy: AC scan not single")
+        specs.append(s)
+    return specs
+
 
 
 def huffman_tables(frame, R: int = 0) -> Tuple[int, tuple, np.ndarray]:

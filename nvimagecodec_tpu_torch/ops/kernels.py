@@ -14,11 +14,16 @@ import functools
 import numpy as np
 import torch
 
-from nvimagecodec_tpu.codecs.jpeg.pixel import ZIGZAG_NAT
-from nvimagecodec_tpu.ops.dct import dequant_idct_matrix
-
 from .. import _build
+from .dct import dequant_idct_matrix
 
+# zigzag index -> natural position (ITU-T T.81 figure A.6)
+ZIGZAG_NAT = np.array([
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+], np.int32)
 # natural position n -> zigzag index
 ZZ_OF_NAT = np.argsort(ZIGZAG_NAT).astype(np.int64)
 
@@ -45,7 +50,7 @@ def _matrix(quant_bytes: bytes, device: torch.device) -> torch.Tensor:
 
 
 def idct_matrix(quant: np.ndarray, device) -> torch.Tensor:
-    """K1's matrix: the reference's dequant-folded IDCT matrix
+    """K1's matrix: the dequant-folded IDCT matrix (`dequant_idct_matrix`)
     [64 pixels, 64 natural coefficients] float32 on `device`. Kept per
     table and device, so a pixel stage uploads (and waits for) no copy of
     a table it has seen; callers must not write to it."""

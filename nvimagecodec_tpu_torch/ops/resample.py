@@ -3,7 +3,8 @@
 The torch counterpart of nvimagecodec_tpu/ops/resample.py (:18-101): fancy
 (triangular) h2v1, h2v2 and h1v2 upsampling with replicated edges, and
 nearest-neighbour replication for every other factor. Planes are
-[..., H, W] with any leading dims. Downsampling waits for device encode.
+[..., H, W] with any leading dims. The libjpeg-biased downsampling
+(:104-137) is here too; the host JPEG encoder runs it on CPU tensors.
 """
 from __future__ import annotations
 
@@ -79,3 +80,34 @@ def upsample_to(s, vfactor: int, hfactor: int, fancy: bool = True):
     if fancy and vfactor == 2 and hfactor == 1:
         return upsample_v2_fancy(s)
     return upsample_replicate(s, vfactor, hfactor)
+
+
+def _alternating(n: int, device) -> torch.Tensor:
+    """0, 1, 0, 1, ... of length n, int32."""
+    return torch.arange(n, dtype=torch.int32, device=device) % 2
+
+
+def downsample_h2v1(s):
+    """[..., H, 2W] → [..., H, W] pair average with alternating bias 0,1
+    (libjpeg h2v1_downsample)."""
+    s = s.to(torch.int32)
+    a = s[..., 0::2]
+    b = s[..., 1::2]
+    return (a + b + _alternating(a.shape[-1], s.device)) >> 1
+
+
+def downsample_h2v2(s):
+    """[..., 2H, 2W] → [..., H, W] 2x2 average with alternating bias 1,2
+    (libjpeg h2v2_downsample)."""
+    s = s.to(torch.int32)
+    q = (s[..., 0::2, 0::2] + s[..., 0::2, 1::2]
+         + s[..., 1::2, 0::2] + s[..., 1::2, 1::2])
+    return (q + 1 + _alternating(q.shape[-1], s.device)) >> 2
+
+
+def downsample_v2(s):
+    """[..., 2H, W] → [..., H, W] vertical pair average (libjpeg h1v2)."""
+    s = s.to(torch.int32)
+    a = s[..., 0::2, :]
+    b = s[..., 1::2, :]
+    return (a + b + _alternating(a.shape[-1], s.device)) >> 1

@@ -5,7 +5,7 @@ import pytest
 
 import oracle
 import torch_corpus as tc
-from nvimagecodec_tpu.codecs.jpeg.headers import parse_jpeg_structure
+from nvimagecodec_tpu_torch.codecs.jpeg.headers import parse_jpeg_structure
 from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
 from util import make_photo
 

@@ -12,7 +12,7 @@ import torch
 import oracle
 import nvimagecodec_tpu as ref
 import nvimagecodec_tpu_torch as port
-from nvimagecodec_tpu.codecs.jpeg import JpegCpuDecoder
+from nvimagecodec_tpu_torch.codecs.jpeg import JpegCpuDecoder
 from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
 from util import add_exif_orientation, make_photo
 

@@ -11,7 +11,7 @@ import torch
 import oracle
 import nvimagecodec_tpu as ref
 import nvimagecodec_tpu_torch as port
-from nvimagecodec_tpu.codecs.jpeg.headers import parse_jpeg_structure
+from nvimagecodec_tpu_torch.codecs.jpeg.headers import parse_jpeg_structure
 from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
 from nvimagecodec_tpu_torch.codecs.jpeg import device_entropy as de
 from util import make_photo

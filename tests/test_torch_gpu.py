@@ -11,10 +11,10 @@ import torch
 
 import nvimagecodec_tpu_torch as port
 import torch_corpus
-from nvimagecodec_tpu.codecs.jpeg.encode import encode_jpeg
-from nvimagecodec_tpu.codecs.jpeg.headers import parse_jpeg_structure
-from nvimagecodec_tpu.codecs.jpeg.pixel import ZIGZAG_NAT
-from nvimagecodec_tpu.codecs.jpeg.tables import (
+from nvimagecodec_tpu_torch.codecs.jpeg.encode import encode_jpeg
+from nvimagecodec_tpu_torch.codecs.jpeg.headers import parse_jpeg_structure
+from nvimagecodec_tpu_torch.codecs.jpeg.pixel import ZIGZAG_NAT
+from nvimagecodec_tpu_torch.codecs.jpeg.tables import (
     STD_CHROMA_QUANT,
     quality_scaled_quant,
 )
@@ -55,6 +55,30 @@ def test_k1_kernel_vs_plain(cuda, zigzag, K):
     want = kernels.dequant_idct_blocks_plain(x, M, 8, zigzag)
     torch.cuda.synchronize()
     assert int((got - want).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("nblocks,K,precision", [
+    (1, 64, 8), (127, 64, 8), (129, 64, 8), (301, 10, 8), (513, 33, 8),
+    (1000, 64, 12)])
+def test_k1_partial_tiles_and_prefixes(cuda, nblocks, K, precision):
+    """Block counts around the kernel's 128-block tile, zigzag prefixes whose
+    rows are not 16-byte aligned, and a source pointer off a 16-byte
+    boundary: all equal the plain version within 1, and the unaligned source
+    gives what the aligned one gives."""
+    rng = np.random.default_rng(nblocks)
+    amp = 3000 if precision == 12 else 300
+    x = torch.from_numpy(rng.integers(-amp, amp, (1, 1, nblocks, K))
+                         .astype(np.int16)).to(cuda)
+    M = kernels.idct_matrix(quality_scaled_quant(STD_CHROMA_QUANT, 80), cuda)
+    got = kernels.dequant_idct_blocks(x, M, precision, True)
+    want = kernels.dequant_idct_blocks_plain(x, M, precision, True)
+    assert int((got - want).abs().max()) <= 1
+    assert int(got.max()) <= (1 << precision) - 1 and int(got.min()) >= 0
+    odd = torch.empty(nblocks * K + 3, dtype=torch.int16, device=cuda)
+    view = odd[3:].view(1, 1, nblocks, K)
+    view.copy_(x)
+    assert torch.equal(kernels.dequant_idct_blocks(view, M, precision, True),
+                       got)
 
 
 def test_k1_zigzag_equals_natural(cuda):

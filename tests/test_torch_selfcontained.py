@@ -1,0 +1,187 @@
+"""The CUDA port stands alone: no file of it imports the JAX package or jax
+(walked statically, file by file), and with both blocked by an import hook a
+fresh interpreter still decodes and encodes through it on the CPU."""
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("nvimagecodec_tpu", "jax", "jaxlib")
+
+FILES = sorted(
+    os.path.relpath(p, ROOT) for p in
+    glob.glob(os.path.join(ROOT, "nvimagecodec_tpu_torch", "**", "*.py"),
+              recursive=True)
+) + ["chip_smoke.py", "tools/profile_torch_decode.py", "tools/bench_idct.py",
+     "tools/fp32_peak.py"]
+
+
+def _imported_roots(tree: ast.AST):
+    """Top-level package of every absolute import in `tree`, and of every
+    string handed to `importlib.import_module` / `__import__`."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0], node.lineno
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            if name in ("import_module", "__import__") and node.args:
+                arg = node.args[0]
+                if isinstance(arg, ast.Constant) and isinstance(arg.value,
+                                                                str):
+                    yield arg.value.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", FILES)
+def test_file_imports_nothing_of_the_jax_package(path):
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), path)
+    bad = [(root, line) for root, line in _imported_roots(tree)
+           if root in BLOCKED]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_has_its_own_host_layer():
+    """The copied host modules sit under the JAX package's relative paths."""
+    for rel in ["core/scheduler.py", "core/registry.py", "core/promise.py",
+                "parsers/jpeg.py", "parsers/tiff.py",
+                "codecs/jpeg/headers.py", "codecs/jpeg/native.py",
+                "codecs/jpeg/encode.py", "codecs/png.py", "codecs/tiff.py",
+                "codecs/webp.py", "codecs/system_codecs.py",
+                "native/__init__.py", "native/jpeg_entropy.cpp",
+                "native/opj_bridge.py"]:
+        assert os.path.exists(os.path.join(ROOT, "nvimagecodec_tpu", rel))
+        assert os.path.exists(os.path.join(ROOT, "nvimagecodec_tpu_torch",
+                                           rel)), rel
+
+
+_PRELUDE = r"""
+import importlib.abc
+import sys
+
+
+class _Block(importlib.abc.MetaPathFinder):
+    # any import of the JAX package or of jax raises
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {blocked!r}:
+            raise ImportError("blocked import of " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+sys.path[:0] = [{root!r}, {tests!r}]
+import numpy as np
+import torch
+import oracle
+import nvimagecodec_tpu_torch as port
+from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
+from util import make_photo
+
+try:
+    import nvimagecodec_tpu
+except ImportError:
+    pass
+else:
+    raise AssertionError("the import hook does not block")
+
+imgs = [make_photo(64, 80, seed=s) for s in range(16)]
+
+
+def close(a, b, bar=8.0):
+    d = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
+    assert d.mean() < bar, d.mean()
+
+
+def routes(before):
+    return {{k: jb.ROUTES[k] - before[k] for k in before if
+             jb.ROUTES[k] != before[k]}}
+"""
+
+_SCRIPTS = {
+    "jpeg_routes": r"""
+params = port.EncodeParams(quality=85,
+                           chroma_subsampling=port.ChromaSubsampling.CSS_420)
+jpgs = port.Encoder().encode(imgs, "jpeg", params)
+dec = port.Decoder(device="cpu")
+before = dict(jb.ROUTES)
+for im, src in zip(dec.decode(jpgs), imgs):
+    close(im, src)
+assert routes(before) == {"idx": 16}, routes(before)
+dri = [oracle.jpeg_encode(im, 85, "420", restart_interval=5) for im in imgs]
+before = dict(jb.ROUTES)
+for im, src in zip(dec.decode(dri), imgs):
+    close(im, src)
+assert routes(before) == {"dri": 16}, routes(before)
+before = dict(jb.ROUTES)
+for im, src in zip(dec.decode(jpgs[:3]), imgs):  # under the minimum bucket
+    close(im, src)
+assert routes(before) == {"host": 3}, routes(before)
+cpu_only = port.Decoder(device="cpu",
+                        backends=[port.Backend(port.BackendKind.CPU_ONLY)])
+before = dict(jb.ROUTES)
+close(cpu_only.decode(jpgs[0]), imgs[0])
+assert routes(before) == {}, routes(before)
+""",
+    "progressive_and_host_codecs": r"""
+prog = oracle.jpeg_encode(imgs[0], 85, "420", progressive=True,
+                          restart_interval=5)
+close(jb.decode_progressive(prog, "cpu").numpy(), imgs[0])
+close(port.Decoder(device="cpu").decode(prog), imgs[0])
+enc, dec = port.Encoder(), port.Decoder(device="cpu")
+streams = {
+    "png": oracle.png_encode(imgs[1]),
+    "tiff": oracle.tiff_encode(imgs[1]),
+    "bmp": enc.encode(imgs[1], "bmp"),
+    "pnm": enc.encode(imgs[1], "pnm"),
+}
+for codec, data in streams.items():
+    cs = port.CodeStream(data)
+    assert cs.codec_name == codec, (codec, cs.codec_name)
+    got = dec.decode(data)
+    assert np.array_equal(np.asarray(got), imgs[1]), codec
+webp = oracle.webp_encode_rgb(imgs[1], 80.0)
+assert port.CodeStream(webp).codec_name == "webp"
+close(dec.decode(webp), imgs[1])
+""",
+    "encode": r"""
+enc, dec = port.Encoder(), port.Decoder(device="cpu")
+for css in (port.ChromaSubsampling.CSS_444, port.ChromaSubsampling.CSS_420):
+    params = port.EncodeParams(quality=90, chroma_subsampling=css)
+    data = enc.encode(imgs[2], "jpeg", params)
+    assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+    close(oracle.jpeg_decode(data), imgs[2], 6.0)  # libjpeg reads it
+    close(dec.decode(data), imgs[2], 6.0)
+png = enc.encode(imgs[2], "png")
+assert np.array_equal(np.asarray(dec.decode(png)), imgs[2])
+assert np.array_equal(oracle.png_decode(png), imgs[2])
+""",
+}
+
+_EPILOGUE = r"""
+loaded = [m for m in sys.modules
+          if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None]
+assert not loaded, loaded
+print("ALONE-OK")
+"""
+
+
+@pytest.mark.parametrize("what", sorted(_SCRIPTS))
+def test_port_runs_with_the_jax_package_blocked(what):
+    fmt = dict(blocked=set(BLOCKED), root=ROOT,
+               tests=os.path.join(ROOT, "tests"))
+    code = (_PRELUDE.format(**fmt) + _SCRIPTS[what]
+            + _EPILOGUE.format(**fmt))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "ALONE-OK" in r.stdout
