@@ -8,7 +8,9 @@ the port's three device paths on the GPU and checks that each ran through
 its kernels (launch counts set to 0 just before the path, read just after):
 
 - main path: 256 baseline 4:2:0 JPEGs of 375x500 at q85 (the corpus
-  bench.py times) through the public Decoder, idx route (K2, K1);
+  bench.py times) through the public Decoder, idx route (K2, K1; K2 stores
+  the coefficient stacks as K1 reads them, K3 works in place on the planes,
+  and no path may reach the plain versions' reassembly, gather or scatter);
 - dri path: the same photos with a restart marker every MCU row (committed
   in tests/torch_corpus), through the Decoder's dri route (K2, K1);
 - prog path: 8 progressive streams (libjpeg's default script, restart
@@ -16,6 +18,7 @@ its kernels (launch counts set to 0 just before the path, read just after):
 
 It checks the images and coefficients against the CPU and the native host
 decoder, holds each kernel against its plain PyTorch version on the card,
+(K2 and K3 bit for bit, on clean inputs and with a corrupted lane),
 and times them beside their bound (the larger of bytes moved over 3.35 TB/s
 and operations over the card's peak for their type) and, for K1, beside the
 one library call that computes its product (`torch.matmul`, used nowhere in
@@ -27,6 +30,7 @@ exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -44,6 +48,11 @@ SEEDS = 8
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 K1_GOAL_MS = 0.30  # the three main-path launches together
+K2_GOAL_MS = 0.75  # one bucket of 256 images
+K3_GOAL_MS = 0.65  # the 10 scans of one stream
+# torch.cuda._sleep counts the card's clock; at least this many a millisecond
+# (the H100's boost clock is 1.98 GHz), so a spin is never shorter than asked
+SPIN_CYCLES_PER_MS = 2.0e6
 
 
 def bytes_bound_ms(*tensors) -> float:
@@ -56,19 +65,30 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the current stream (CUDA events)."""
+def cuda_ms(fn, reps: int, hold_ms: float = 0.0) -> float:
+    """Mean milliseconds per call of fn(i) on the current stream (CUDA
+    events). With hold_ms > 0 the calls queue up behind a kernel that spins
+    that long, so the events see the card's time alone and not the host's
+    pace of launching (a small kernel runs shorter than its wrapper); it
+    raises if the host was still launching when the spin ended."""
     import torch
 
-    fn()  # warm-up
+    fn(0)  # warm-up
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if hold_ms > 0:
+        torch.cuda._sleep(int(hold_ms * SPIN_CYCLES_PER_MS))
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        fn(i)
     end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
+    if hold_ms > 0 and host_ms > hold_ms * 0.5:
+        raise RuntimeError(f"cuda_ms: the host took {host_ms:.2f} ms to launch "
+                           f"behind a spin of {hold_ms} ms")
     return start.elapsed_time(end) / reps
 
 
@@ -85,13 +105,8 @@ def main() -> int:
     import nvimagecodec_tpu_torch as nic
     from nvimagecodec_tpu_torch import _build, native
     from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
-    from nvimagecodec_tpu_torch.codecs.jpeg.device_entropy import (
-        reassemble_components,
-    )
     from nvimagecodec_tpu_torch.ops.entropy_kernels import (
-        decode_segments,
-        decode_segments_plain,
-        huffman_tables,
+        decode_segments_into,
     )
     from nvimagecodec_tpu_torch.ops.kernels import (
         ZIGZAG_NAT,
@@ -149,8 +164,9 @@ def main() -> int:
                       backends=[nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)])
     routes0 = dict(jb.ROUTES)
     counts_zero()
-    imgs, k1_main_err, _shapes = k1_held(lambda: dec.decode(jpgs))
-    torch.cuda.synchronize()
+    with no_plain_versions():
+        imgs, k1_main_err, _shapes = k1_held(lambda: dec.decode(jpgs))
+        torch.cuda.synchronize()
     launches = counts()
     routes = {k: jb.ROUTES[k] - routes0[k] for k in routes0}
     bad = [j for j, im in enumerate(imgs)
@@ -173,56 +189,28 @@ def main() -> int:
           f"CPU decode (native host entropy + plain pixel stage); K1 vs plain "
           f"on every launch max |diff| {k1_main_err}")
 
-    # K2's inputs for the full bucket and for a 4-image bucket
+    # 5) K2 against its plain version (a 4-image bucket, clean and with a
+    # corrupted lane, then the full bucket) and against the native host
+    # decoder (the full bucket)
     frames = {i: jb.parse_jpeg_structure(d) for i, d in enumerate(jpgs)}
     raws = dict(enumerate(jpgs))
-    plan = jb.route_plan(frames[0])
-    _kind, _key, R, nsegs = plan
-    R, comp_map, tables = huffman_tables(frames[0], R)
-    tables_d = torch.from_numpy(tables).to(dev)
-
-    def k2_inputs(n):
-        split = jb.split_indexed(list(range(n)), frames, raws, R, nsegs, dev)
-        ok, bad_pack, bad_scan, words, side = split
-        if len(ok) != n or bad_pack or bad_scan:
-            raise RuntimeError("index scan rejected corpus samples")
-        return words.to(dev), side.to(dev)
-
-    # 5) K2 against its plain version (4 images, then the full bucket) and
-    # against the native host decoder (the full bucket)
-    w4, s4 = k2_inputs(4)
-    o_k, e_k = decode_segments(w4, s4, tables_d, R, comp_map)
-    o_p, e_p = decode_segments_plain(w4, s4, tables_d, R, comp_map)
-    if not (torch.equal(o_k, o_p) and torch.equal(e_k, e_p)):
-        raise RuntimeError("K2 kernel differs from its plain version "
-                           "(4-image bucket)")
-    words, side = k2_inputs(BATCH)
-    out, err = decode_segments(words, side, tables_d, R, comp_map)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out_p, err_p = decode_segments_plain(words, side, tables_d, R, comp_map)
-    torch.cuda.synchronize()
-    k2_plain_ms = (time.perf_counter() - t0) * 1000
-    k2_err = max(int((out.int() - out_p.int()).abs().max()),
-                 int((err - err_p).abs().max()))
-    if not (torch.equal(out, out_p) and torch.equal(err, err_p)):
-        raise RuntimeError(f"K2 kernel differs from its plain version on the "
-                           f"full bucket: max |diff| {k2_err}")
-    if int(err.sum()) != 0:
-        raise RuntimeError(f"K2 flagged {int((err != 0).sum())} lanes")
-    coefs = reassemble_components(out, frames[0], BATCH, nsegs, R)
+    k2_err = k2_held("idx", frames, raws, 4, dev, corrupt=True)[0]
+    k2_err2, k2_plain_ms, k2_args, coefs = k2_held("idx", frames, raws, BATCH,
+                                                   dev)
+    k2_err = max(k2_err, k2_err2)
     check_host_coefs(coefs, frames, raws, "K2 (idx)")
-    phase("K2", f"words {tuple(words.shape)} -> out {tuple(out.shape)}: "
-          f"bit-exact vs plain (4-image and {BATCH}-image buckets, out and "
-          f"err, max |diff| {k2_err}) and vs native host coefficients (all "
-          f"{BATCH} samples); 0 err flags")
+    words = k2_args[0]
+    phase("K2", f"words {tuple(words.shape)} -> stacks "
+          f"{[tuple(c.shape) for c in coefs]}: bit-exact vs plain (4-image "
+          f"bucket clean and with a corrupted lane, {BATCH}-image bucket; "
+          f"stacks and err, max |diff| {k2_err}) and vs native host "
+          f"coefficients (all {BATCH} samples); 0 err flags on clean input")
 
     # 6) K1 at the main path's shapes (zigzag coefficients from K2)
     k1_err = k1_main_err
     k1_in = []
     nat_of_zz = torch.from_numpy(ZIGZAG_NAT.astype(np.int64)).to(dev)
-    for c, comp in zip(coefs, frames[0].components):
-        x = c.contiguous()
+    for x, comp in zip(coefs, frames[0].components):
         M = idct_matrix(frames[0].quant[comp.tq], dev)
         got = dequant_idct_blocks(x, M, 8, zigzag=True)
         want = dequant_idct_blocks_plain(x, M, 8, zigzag=True)
@@ -251,17 +239,18 @@ def main() -> int:
     prog_ips = prog_phase(prog, dev)
 
     # 10) times (informational; no claim)
-    k1_ms = sum(cuda_ms(lambda x=x, M=M: dequant_idct_blocks(x, M, 8, True),
+    k1_ms = sum(cuda_ms(lambda i, x=x, M=M: dequant_idct_blocks(x, M, 8, True),
                         20) for x, M in k1_in)
     k1_plain_ms = sum(
-        cuda_ms(lambda x=x, M=M: dequant_idct_blocks_plain(x, M, 8, True), 5)
-        for x, M in k1_in)
+        cuda_ms(lambda i, x=x, M=M: dequant_idct_blocks_plain(x, M, 8, True),
+                5) for x, M in k1_in)
     # the library call beside K1: the same product in fp32, nothing else
     k1_lib_ms = 0.0
     for x, M in k1_in:
         a32 = x.reshape(-1, 64).to(torch.float32)
         mt = M.T.contiguous()
-        k1_lib_ms += cuda_ms(lambda a32=a32, mt=mt: torch.matmul(a32, mt), 20)
+        k1_lib_ms += cuda_ms(lambda i, a32=a32, mt=mt: torch.matmul(a32, mt),
+                             20)
         del a32
     # K1's bound: every coefficient read and every int32 sample written
     # once, M once a launch, against 2 * K * 64 fp32 operations a block
@@ -270,11 +259,12 @@ def main() -> int:
                    + sum(k1_blocks) * 64 * 4 / HBM_BYTES_PER_S * 1e3)
     k1_ops_ms = sum(2 * x.numel() * 64 for x, _ in k1_in) / FP32_FLOPS * 1e3
     k1_bound_ms = max(k1_bytes_ms, k1_ops_ms)
-    k2_ms = cuda_ms(lambda: decode_segments(words, side, tables_d, R,
-                                            comp_map), 10)
+    k2_ms = cuda_ms(lambda i: decode_segments_into(*k2_args), 10, hold_ms=20)
     # K2 and K3 walk their bits in series with integer operations, for which
-    # the data sheet names no peak: their bound is the bytes alone
-    k2_bound_ms = bytes_bound_ms(words, side, tables_d, out, err)
+    # the data sheet names no peak: their bound is the bytes alone (words,
+    # side, tables and lookahead rows read, stacks and err written)
+    k2_bound_ms = bytes_bound_ms(*k2_args[:4], *coefs) \
+        + k2_args[1].shape[1] * 4 / HBM_BYTES_PER_S * 1e3
     dec.decode(jpgs)
     torch.cuda.synchronize()
     reps = 3
@@ -289,13 +279,18 @@ def main() -> int:
           f"{'met' if k1_ms <= K1_GOAL_MS else 'missed'}; torch.matmul "
           f"{k1_lib_ms:.4f}; plain {k1_plain_ms:.4f}; bound "
           f"{k1_bound_ms:.4f}, bytes {k1_bytes_ms:.4f} / operations "
-          f"{k1_ops_ms:.4f}); K2 {k2_ms:.4f} ms (plain {k2_plain_ms:.1f}, "
-          f"one run; bound by bytes {k2_bound_ms:.4f}); K2 on the dri bucket "
-          f"{dri['k2_ms']:.4f} ms")
+          f"{k1_ops_ms:.4f}); K2 {k2_ms:.4f} ms (goal <= {K2_GOAL_MS}: "
+          f"{'met' if k2_ms <= K2_GOAL_MS else 'missed'}; plain "
+          f"{k2_plain_ms:.1f}, one run; bound by bytes {k2_bound_ms:.4f}); "
+          f"K2 on the dri bucket {dri['k2_ms']:.4f} ms")
+    k3_ms = sum(k3["ms"].values())
     phase("times", f"on {card}: K3 per kind, summed over the scans of one "
           f"stream, kernel (plain, one run): " + "; ".join(
               f"{kd} {k3['ms'][kd]:.4f} ms ({k3['plain_ms'][kd]:.1f})"
-              for kd in K3_KINDS))
+              for kd in K3_KINDS) + f"; together {k3_ms:.4f} ms (goal <= "
+          f"{K3_GOAL_MS}: {'met' if k3_ms <= K3_GOAL_MS else 'missed'}; "
+          f"bound by bytes {k3['bound_ms']:.5f}); one launch of its wrapper "
+          f"costs the host {k3['host_ms_per_launch']:.4f} ms")
     phase("times", f"on {card}: progressive entropy decode, "
           f"decode_progressive_device {prog_ips['device']:.1f} images/s "
           f"against the native host entropy decoder {prog_ips['host']:.1f} "
@@ -318,7 +313,7 @@ def main() -> int:
          "launches_by_path": {"main": launches["K1"],
                               "dri": dri["launches"]["K1"],
                               "prog": prog_ips["launches"]["K1"]}},
-        {"name": "K2 decode_segments", "route": "cuda",
+        {"name": "K2 decode_segments_into", "route": "cuda",
          "source": "nvimagecodec_tpu_torch/csrc/huffman.cu",
          "replaces": "nvimagecodec_tpu/ops/pallas_entropy.py:120",
          "launches": launches["K2"], "max_abs_err": max(k2_err,
@@ -327,11 +322,11 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "launches_by_path": {"main": launches["K2"],
                               "dri": dri["launches"]["K2"]}},
-        {"name": "K3 decode_prog_scan", "route": "cuda",
+        {"name": "K3 decode_prog_scan_into", "route": "cuda",
          "source": "nvimagecodec_tpu_torch/csrc/prog_huffman.cu",
          "replaces": "nvimagecodec_tpu/ops/pallas_entropy.py:493",
          "launches": prog_ips["launches"]["K3"], "max_abs_err": k3["err"],
-         "ms": sum(k3["ms"].values()),
+         "ms": k3_ms, "ms_by_kind": k3["ms"],
          "plain_ms": sum(k3["plain_ms"].values()),
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "launches_by_path": {"prog": prog_ips["launches"]["K3"]}},
@@ -348,8 +343,8 @@ def counts_zero():
     from nvimagecodec_tpu_torch.ops import kernels
 
     kernels.dequant_idct_blocks.launches = 0
-    ek.decode_segments.launches = 0
-    ek.decode_prog_scan.launches = 0
+    ek.decode_segments_into.launches = 0
+    ek.decode_prog_scan_into.launches = 0
 
 
 def counts():
@@ -357,8 +352,96 @@ def counts():
     from nvimagecodec_tpu_torch.ops import kernels
 
     return {"K1": kernels.dequant_idct_blocks.launches,
-            "K2": ek.decode_segments.launches,
-            "K3": ek.decode_prog_scan.launches}
+            "K2": ek.decode_segments_into.launches,
+            "K3": ek.decode_prog_scan_into.launches}
+
+
+@contextlib.contextmanager
+def no_plain_versions():
+    """While a path is driven on the card: the lane-major decodes and the
+    reassembly, gather and scatter around them belong to the kernels' plain
+    versions, and reaching one of them is a failure."""
+    from nvimagecodec_tpu_torch.ops import entropy_kernels as ek
+
+    names = ("decode_segments_plain", "decode_prog_scan_plain",
+             "reassemble_components", "_dc_index", "_ac_index")
+    real = {n: getattr(ek, n) for n in names}
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise RuntimeError(f"a device path reached {name}")
+        return fn
+
+    for n in names:
+        setattr(ek, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(ek, n, fn)
+
+
+def k2_held(kind, frames, raws, n, dev, corrupt=False):
+    """K2 on the first n streams, split as the route `kind` ("idx" or
+    "dri") splits them, against its plain version: stacks and err bit for
+    bit, no flag on clean input. With corrupt=True the same once more with
+    a few words of one lane overwritten (no Huffman code is sixteen 1 bits):
+    the lane is flagged and even its garbage is equal. Returns (max |diff|,
+    the plain version's milliseconds, K2's arguments, its stacks)."""
+    import torch
+
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
+    from nvimagecodec_tpu_torch.ops import entropy_kernels as ek
+
+    f0 = frames[0]
+    _kind, _key, R, nsegs = jb.route_plan(f0)
+    if kind == "idx":
+        ok, bad, bad_scan, words, side = jb.split_indexed(
+            list(range(n)), frames, raws, R, nsegs, dev)
+        if len(ok) != n or bad or bad_scan:
+            raise RuntimeError("index scan rejected corpus samples")
+    else:
+        split = jb.split_dri(list(range(n)), frames, raws, nsegs, dev)
+        if split is None or split[0]:
+            raise RuntimeError("dri split rejected corpus samples")
+        _bad, words, side = split
+    R, _comp_map, tables = ek.huffman_tables(f0, R)
+    mcus_x = -(-f0.width // (8 * f0.hmax))
+    mcus_y = -(-f0.height // (8 * f0.vmax))
+    args = (words.to(dev), side.to(dev), torch.from_numpy(tables).to(dev),
+            torch.from_numpy(ek.lookahead_tables(tables)).to(dev), R,
+            [(c.h, c.v) for c in f0.components], mcus_x, mcus_y, n, nsegs)
+
+    def both(args, what):
+        stacks, err = ek.decode_segments_into(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, err_p = ek.decode_segments_into_plain(*args[:3], *args[4:])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1000
+        diff = max(int((err - err_p).abs().max()),
+                   *(int((a.int() - b.int()).abs().max())
+                     for a, b in zip(stacks, want)))
+        same = all(a.shape == b.shape and a.is_contiguous()
+                   for a, b in zip(stacks, want))
+        if diff != 0 or not same:
+            raise RuntimeError(f"K2 differs from its plain version on the "
+                               f"{n}-image {kind} bucket ({what}): max |diff| "
+                               f"{diff}")
+        return stacks, err, plain_ms
+
+    stacks, err, plain_ms = both(args, "clean")
+    if int(err.sum()) != 0:
+        raise RuntimeError(f"K2 flagged {int((err != 0).sum())} lanes of the "
+                           f"clean {n}-image {kind} bucket")
+    if corrupt:
+        lane = nsegs + 2  # the second image's third segment
+        bad_words = args[0].clone()
+        bad_words[3:7, lane] = -1
+        _stacks, err, _ms = both((bad_words,) + args[1:], "corrupted lane")
+        if int(err[lane]) != 1:
+            raise RuntimeError(f"K2 did not flag the corrupted {kind} lane")
+    return 0, plain_ms, args, stacks
 
 
 def max_diff(imgs, ref) -> int:
@@ -370,7 +453,7 @@ def max_diff(imgs, ref) -> int:
 
 
 def check_host_coefs(coefs, frames, raws, label):
-    """K2's reassembled [B, bh, bw, 64] zigzag coefficients of every sample
+    """K2's [B, bh, bw, 64] zigzag coefficient stacks of every sample
     against the native host decoder (sample j repeats at j, j + SEEDS, ...)."""
     import numpy as np
     import torch
@@ -428,21 +511,17 @@ def dri_phase(dec, dev):
     import nvimagecodec_tpu_torch as nic
     import torch_corpus
     from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
-    from nvimagecodec_tpu_torch.codecs.jpeg.device_entropy import (
-        reassemble_components,
-    )
     from nvimagecodec_tpu_torch.ops.entropy_kernels import (
-        decode_segments,
-        decode_segments_plain,
-        huffman_tables,
+        decode_segments_into,
     )
 
     uniq = torch_corpus.dri_streams()
     jpgs = [uniq[i % SEEDS] for i in range(BATCH)]
     routes0 = dict(jb.ROUTES)
     counts_zero()
-    imgs, k1_err, _shapes = k1_held(lambda: dec.decode(jpgs))
-    torch.cuda.synchronize()
+    with no_plain_versions():
+        imgs, k1_err, _shapes = k1_held(lambda: dec.decode(jpgs))
+        torch.cuda.synchronize()
     launches = counts()
     routes = {k: jb.ROUTES[k] - routes0[k] for k in routes0}
     bad = [j for j, im in enumerate(imgs)
@@ -462,47 +541,22 @@ def dri_phase(dec, dev):
 
     frames = {i: jb.parse_jpeg_structure(d) for i, d in enumerate(jpgs)}
     raws = dict(enumerate(jpgs))
-    _kind, _key, R, nsegs = jb.route_plan(frames[0])
-    R, comp_map, tables = huffman_tables(frames[0], R)
-    tables_d = torch.from_numpy(tables).to(dev)
-    bad_pos, w4, s4 = jb.split_dri(list(range(4)), frames, raws, nsegs, dev)
-    if bad_pos:
-        raise RuntimeError("dri split rejected corpus samples")
-    w4, s4 = w4.to(dev), s4.to(dev)
-    o_k, e_k = decode_segments(w4, s4, tables_d, R, comp_map)
-    o_p, e_p = decode_segments_plain(w4, s4, tables_d, R, comp_map)
-    k2_err = max(int((o_k.int() - o_p.int()).abs().max()),
-                 int((e_k - e_p).abs().max()))
-    if not (torch.equal(o_k, o_p) and torch.equal(e_k, e_p)):
-        raise RuntimeError(f"K2 kernel differs from its plain version on a "
-                           f"4-image dri bucket: max |diff| {k2_err}")
-    if int(e_k.sum()) != 0:
-        raise RuntimeError("K2 flagged lanes of the dri bucket")
+    k2_err = k2_held("dri", frames, raws, 4, dev, corrupt=True)[0]
     # the full bucket, as the route splits it (W from the first guess)
-    split = jb.split_dri(list(range(BATCH)), frames, raws, nsegs, dev)
-    if split is None or split[0]:
-        raise RuntimeError("dri split rejected corpus samples")
-    wb, sb = split[1].to(dev), split[2].to(dev)
-    o_b, e_b = decode_segments(wb, sb, tables_d, R, comp_map)
-    o_pb, e_pb = decode_segments_plain(wb, sb, tables_d, R, comp_map)
-    k2_err = max(k2_err, int((o_b.int() - o_pb.int()).abs().max()),
-                 int((e_b - e_pb).abs().max()))
-    if not (torch.equal(o_b, o_pb) and torch.equal(e_b, e_pb)):
-        raise RuntimeError(f"K2 kernel differs from its plain version on the "
-                           f"{BATCH}-image dri bucket: max |diff| {k2_err}")
-    if int(e_b.sum()) != 0:
-        raise RuntimeError("K2 flagged lanes of the full dri bucket")
-    check_host_coefs(reassemble_components(o_b, frames[0], BATCH, nsegs, R),
-                     frames, raws, "K2 (dri)")
-    k2_ms = cuda_ms(lambda: decode_segments(wb, sb, tables_d, R, comp_map),
-                    10)
+    k2_err2, _plain_ms, args, stacks = k2_held("dri", frames, raws, BATCH,
+                                               dev)
+    k2_err = max(k2_err, k2_err2)
+    check_host_coefs(stacks, frames, raws, "K2 (dri)")
+    k2_ms = cuda_ms(lambda i: decode_segments_into(*args), 10, hold_ms=20)
+    nsegs = args[-1]
     phase("dri_path", f"{BATCH}/{BATCH} CUDA uint8 [{H},{W},3] via dri route "
           f"(restart interval {torch_corpus.DRI_RI} MCUs, {nsegs} segments "
-          f"each, words {tuple(wb.shape)}); launches {launches}; all {BATCH} "
-          f"within {diff} of the CPU decode; K1 vs plain on every launch max "
-          f"|diff| {k1_err}; K2 bit-exact vs plain on 4-image and "
-          f"{BATCH}-image dri buckets (out and err, max |diff| {k2_err}) and "
-          f"vs native host coefficients (all {BATCH} samples)")
+          f"each, words {tuple(args[0].shape)}); launches {launches}; all "
+          f"{BATCH} within {diff} of the CPU decode; K1 vs plain on every "
+          f"launch max |diff| {k1_err}; K2 bit-exact vs plain on a 4-image "
+          f"dri bucket (clean and with a corrupted lane) and the "
+          f"{BATCH}-image one (stacks and err, max |diff| {k2_err}) and vs "
+          f"native host coefficients (all {BATCH} samples)")
     dec.decode(jpgs)
     torch.cuda.synchronize()
     reps = 3
@@ -517,65 +571,114 @@ def dri_phase(dec, dev):
 K3_KINDS = ("dc", "dcref", "ac", "acref")
 
 
+def k3_bytes(call) -> int:
+    """Bytes one K3 launch must move: words, side, tables, lookahead rows
+    and flags once; of the planes, coefficient 0 of every block of a DC scan
+    and positions ss..se of every block of an AC scan's grid, written once
+    and, by a refinement, read once too."""
+    kind, (words, side, tables, look), planes, geom = call
+    _R, _hv, _mcus_x, _ci, grid, ss, se, _al = geom
+    if ss == 0:
+        coefs = sum(p.shape[0] * p.shape[1] for p in planes)
+    else:
+        coefs = grid[0] * grid[1] * (se - ss + 1)
+    moved = 2 if kind in ("dcref", "acref") else 1
+    return (sum(t.numel() * t.element_size()
+                for t in (words, side, tables, look))
+            + side.shape[1] * 4 + coefs * 2 * moved)
+
+
 def k3_phase(streams, dev):
-    """Every scan's K3 output against decode_prog_scan_plain on the card,
-    on the inputs the progressive route builds; then each scan of the first
-    stream timed (CUDA events) beside one plain run. Returns the phase's
-    numbers."""
+    """Every scan of `streams` through K3 and through its plain version on
+    the card, on the inputs the progressive route builds and on the planes
+    as they were before that scan: the planes after the scan and err bit for
+    bit, no flag; then the same with a few words of one lane overwritten
+    (the first scan of a kind must flag it). Then each scan of the first
+    stream timed (CUDA events behind a spin, every launch on a fresh copy of
+    the planes) beside one plain run. Returns the phase's numbers."""
     import torch
 
     from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
     from nvimagecodec_tpu_torch.codecs.jpeg import device_entropy as de
     from nvimagecodec_tpu_torch.ops import entropy_kernels as ek
 
-    real = de.decode_prog_scan
-    calls = []
+    real = de.decode_prog_scan_into
+    calls = []  # (kind, (words, side, tables, look), planes before, geometry)
 
-    def both(kind, *args):
-        got = real(kind, *args)
-        want = ek.decode_prog_scan_plain(kind, *args)
-        calls.append((kind, args, got, want))
-        return got
+    def capture(kind, words, side, tables, look, planes, *geom):
+        calls.append((kind, (words, side, tables, look),
+                      [p.clone() for p in planes], geom))
+        return real(kind, words, side, tables, look, planes, *geom)
 
-    err = 0
-    de.decode_prog_scan = both
-    try:
-        for n, data in enumerate(streams):
-            calls.clear()
-            de.decode_progressive_device(jb.parse_jpeg_structure(data),
-                                         data, dev)
-            torch.cuda.synchronize()
-            for kind, args, got, want in calls:
-                for a, b in zip(got, want):
-                    err = max(err, int((a.int() - b.int()).abs().max()))
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise RuntimeError(f"K3 {kind} differs from its plain "
-                                       f"version (stream {n})")
-            kinds = {c[0] for c in calls}
-            if kinds != set(K3_KINDS):
-                raise RuntimeError(f"K3 ran kinds {kinds} only")
-            if n == 0:
-                timed = list(calls)
-    finally:
-        de.decode_prog_scan = real
+    def both(kind, inputs, before, geom, what):
+        mine = [p.clone() for p in before]
+        want = [p.clone() for p in before]
+        err = ek.decode_prog_scan_into(kind, *inputs, mine, *geom)
+        err_p = ek.decode_prog_scan_into_plain(kind, *inputs[:3], want, *geom)
+        torch.cuda.synchronize()
+        diff = max(int((err - err_p).abs().max()),
+                   *(int((a.int() - b.int()).abs().max())
+                     for a, b in zip(mine, want)))
+        if diff != 0:
+            raise RuntimeError(f"K3 {kind} differs from its plain version "
+                               f"({what}): max |diff| {diff}")
+        return err
+
+    ncorrupt = 0
+    for n, data in enumerate(streams):
+        calls.clear()
+        de.decode_prog_scan_into = capture
+        try:
+            de.decode_progressive_device(jb.parse_jpeg_structure(data), data,
+                                         dev)
+        finally:
+            de.decode_prog_scan_into = real
+        torch.cuda.synchronize()
+        flagged = set()
+        for kind, inputs, before, geom in calls:
+            if int(both(kind, inputs, before, geom, f"stream {n}").sum()):
+                raise RuntimeError(f"K3 flagged a clean {kind} lane")
+            bad = (inputs[0].clone(),) + inputs[1:]
+            bad[0][1:5, 3] = -1  # no Huffman code is sixteen 1 bits
+            err = both(kind, bad, before, geom, f"stream {n}, corrupted lane")
+            ncorrupt += 1
+            # a later band's lane may end before the overwritten words
+            if kind in ("dc", "ac") and kind not in flagged \
+                    and int(err[3]) != 1:
+                raise RuntimeError(f"K3 did not flag the corrupted {kind} "
+                                   "lane")
+            flagged.add(kind)
+        kinds = {c[0] for c in calls}
+        if kinds != set(K3_KINDS):
+            raise RuntimeError(f"K3 ran kinds {kinds} only")
+        if n == 0:
+            timed = list(calls)
     ms = dict.fromkeys(K3_KINDS, 0.0)
     plain_ms = dict.fromkeys(K3_KINDS, 0.0)
-    bound_ms = 0.0
-    for kind, args, got, _want in timed:
-        # words, side, tables, the band where there is one; out and err
-        bound_ms += bytes_bound_ms(
-            *(a for a in args if isinstance(a, torch.Tensor)), *got)
-        ms[kind] += cuda_ms(lambda: ek.decode_prog_scan(kind, *args), 20)
+    reps = 20
+    host_ms = 0.0
+    for kind, inputs, before, geom in timed:
+        copies = [[p.clone() for p in before] for _ in range(reps + 1)]
+        ms[kind] += cuda_ms(
+            lambda i: ek.decode_prog_scan_into(kind, *inputs, copies[i],
+                                               *geom), reps, hold_ms=20)
+        t0 = time.perf_counter()
+        for i in range(reps):
+            ek.decode_prog_scan_into(kind, *inputs, copies[i], *geom)
+        host_ms += (time.perf_counter() - t0) * 1000 / reps
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ek.decode_prog_scan_plain(kind, *args)
+        ek.decode_prog_scan_into_plain(kind, *inputs[:3], copies[reps], *geom)
         torch.cuda.synchronize()
         plain_ms[kind] += (time.perf_counter() - t0) * 1000
-    shapes = sorted({(c[0], tuple(c[2][0].shape)) for c in timed})
-    phase("K3", f"{len(streams)} streams x {len(timed)} scans, kinds "
-          f"{sorted({c[0] for c in timed})}, out shapes {shapes}: bit-exact vs "
-          f"plain (out and err, max |diff| {err}), 0 err flags")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    bound_ms = sum(map(k3_bytes, timed)) / HBM_BYTES_PER_S * 1e3
+    bands = sorted({(c[0], c[3][5], c[3][6]) for c in timed})
+    phase("K3", f"{len(streams)} streams x {len(timed)} scans, (kind, ss, se) "
+          f"{bands}: planes after every scan and err bit-exact vs plain, "
+          f"clean (0 err flags) and with a corrupted lane ({ncorrupt} "
+          "cases), max |diff| 0")
+    return {"err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "host_ms_per_launch": host_ms / len(timed)}
 
 
 def prog_phase(streams, dev):
@@ -593,9 +696,10 @@ def prog_phase(streams, dev):
     from nvimagecodec_tpu_torch.codecs.jpeg.pixel import ZIGZAG_NAT
 
     counts_zero()
-    imgs, k1_err, k1_shapes = k1_held(
-        lambda: [jb.decode_progressive(d, dev) for d in streams])
-    torch.cuda.synchronize()
+    with no_plain_versions():
+        imgs, k1_err, k1_shapes = k1_held(
+            lambda: [jb.decode_progressive(d, dev) for d in streams])
+        torch.cuda.synchronize()
     launches = counts()
     if launches["K3"] == 0 or launches["K1"] == 0:
         raise RuntimeError(f"prog path missed a kernel: {launches}")

@@ -112,14 +112,16 @@ def _declare(L: ctypes.CDLL) -> None:
     L.tic_idct_blocks.argtypes = [vp, i32, i32, vp, vp, i64, ctypes.c_float,
                                   i32, vp]
     L.tic_idct_blocks.restype = i32
-    L.tic_huffman_decode.argtypes = [vp, i32, i64, vp, vp, i32, i32,
-                                     ctypes.POINTER(ctypes.c_int32), i32, i32,
-                                     vp, vp, vp]
-    L.tic_huffman_decode.restype = i32
-    L.tic_prog_huffman_decode.argtypes = [
-        i32, vp, i32, i64, vp, vp, i32, i32, ctypes.POINTER(ctypes.c_int32),
-        i32, i32, i32, i32, i32, vp, vp, vp, vp]
-    L.tic_prog_huffman_decode.restype = i32
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    vpp = ctypes.POINTER(vp)
+    L.tic_huffman_decode_into.argtypes = [
+        vp, i32, i64, vp, vp, i32, i32, vp, i32, i32p, i32, i32, i32, i64,
+        i32, vpp, vp, i32, i32, vp]
+    L.tic_huffman_decode_into.restype = i32
+    L.tic_prog_huffman_decode_into.argtypes = [
+        i32, vp, i32, i64, vp, vp, i32, i32, vp, i32, i32, i32p, i32p, vpp,
+        i32, i64, i32, i32, i32, i32, vp, i32, vp]
+    L.tic_prog_huffman_decode_into.restype = i32
 
 
 def check(rc: int, what: str) -> None:

@@ -42,7 +42,7 @@ import torch
 from ...core.interfaces import DecodeParams, DecodeResult
 from ...core.trace import span
 from ...core.types import ColorSpec, ProcessingStatus
-from ...ops.entropy_kernels import decode_segments, huffman_tables
+from ...ops.entropy_kernels import decode_segments_into, huffman_tables
 from .device_entropy import (
     decode_progressive_device,
     device_entropy_plan,
@@ -50,11 +50,11 @@ from .device_entropy import (
     index_scan_batch,
     indexed_words_needed_batch,
     pack_indexed_batch,
-    reassemble_components,
     split_staged,
     stage,
     staged_tables,
     upload,
+    uploaded_tables,
 )
 from .headers import parse_jpeg_structure
 from .native import decode_coefficients_into
@@ -215,14 +215,20 @@ def _try_device_entropy(idxs, frames, raws, results, fancy, to_rgb, to_u8,
             return None
         ok, bad, bad_scan, words, side = split
         leftover.extend(bad_scan)
-    R, comp_map, tables = huffman_tables(f0, R)
-    words_d, side_d, tables_d = upload(
+    R, _comp_map, tables = huffman_tables(f0, R)
+    words_d, side_d, tabs_d = upload(
         [words, side, staged_tables(tables, device)], device)
+    tables_d, look_d = uploaded_tables(tabs_d, tables)
+    mcus_x = -(-f0.width // (8 * f0.hmax))
+    mcus_y = -(-f0.height // (8 * f0.vmax))
     with span("imgcodec.jpeg.device_entropy"):
-        out, err = decode_segments(words_d, side_d, tables_d, R, comp_map)
+        # K2 stores the stacks as K1 takes them: zigzag blocks, contiguous
+        coefs, err = decode_segments_into(
+            words_d, side_d, tables_d, look_d, R,
+            [(c.h, c.v) for c in f0.components], mcus_x, mcus_y, len(ok),
+            nsegs)
         # the flags come back while the pixel stage runs
         checks.append((ok, bad, nsegs) + _fetch(err, device))
-        coefs = reassemble_components(out, f0, len(ok), nsegs, R)
     imgs = _pixel_stage(f0, coefs, True, fancy, to_rgb, to_u8, bitexact)
     for j, i in enumerate(ok):
         if j in bad:

@@ -8,16 +8,20 @@ and ctypes code of nvimagecodec_tpu/codecs/jpeg/device_entropy.py, copied:
 - `stage` / `upload`: pinned host staging and its asynchronous upload;
 - `split_staged`: the restart-marker split of scans into staged words and
   side, shared by the dri route and the progressive route;
-- `reassemble_components` (the reference's :285-312): K2's [NBLK, 64, S]
-  lane-major output back into per-component [B, bh, bw, 64] zigzag stacks;
+- `staged_tables` / `uploaded_tables`: a bucket's or a scan's Huffman
+  tables and their lookahead rows as one pinned upload;
 - `decode_progressive_device` (the reference's :315-422): a progressive
-  stream with restart markers decoded scan by scan with K3, the coefficient
-  planes kept on the device across scans.
+  stream with restart markers decoded scan by scan with K3, which reads and
+  writes the coefficient planes kept on the device in place.
+
+The reference's `reassemble_components` (:285-312) and its per-scan gather
+and scatter are part of the kernels' plain versions now
+(ops/entropy_kernels.py); K2 and K3 store their blocks where the pixel stage
+reads them.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -27,8 +31,9 @@ from ...core import trace
 from ...core.trace import span
 from ...native import lib as native_lib
 from ...ops.entropy_kernels import (
-    decode_prog_scan,
+    decode_prog_scan_into,
     entropy_kernel_spec,
+    lookahead_tables,
     make_side,
     prog_scan_kind,
     prog_scan_specs,
@@ -198,71 +203,12 @@ def upload(bufs: List[torch.Tensor], device) -> List[torch.Tensor]:
 
 def words_estimate(scan_bytes: int, nsegs: int) -> int:
     """First guess of the word rows a restart segment needs: twice the
-    mean segment, rounded up to 256 (callers double it when a segment does
-    not fit)."""
+    mean segment and 16 more (the reference's guess), rounded up to 16, not
+    to the reference's 256: every row is zeroed, filled and uploaded for
+    all S lanes, and a progressive scan's segments are a few dozen words.
+    Callers double it when a segment does not fit."""
     est = scan_bytes // 4 // nsegs * 2 + 16
-    return -(-est // 256) * 256
-
-
-def reassemble_components(out: torch.Tensor, frame, B: int, nsegs: int,
-                          R: int = 0):
-    """[R*bpm, 64, S] K2 output → per-component [B, bh, bw, 64] zigzag
-    views (strided; each segment is whole MCU rows)."""
-    if R <= 0:
-        R = frame.restart_interval
-    mcus_x = -(-frame.width // (8 * frame.hmax))
-    mcus_y = -(-frame.height // (8 * frame.vmax))
-    rows_per_seg = R // mcus_x
-    bpm = sum(c.h * c.v for c in frame.components)
-    S = out.shape[2]
-    x = out.reshape(rows_per_seg, mcus_x, bpm, 64, S)[..., :B * nsegs]
-    x = x.reshape(rows_per_seg, mcus_x, bpm, 64, B, nsegs)
-    coefs = []
-    off = 0
-    for c in frame.components:
-        nb = c.h * c.v
-        xc = x[:, :, off:off + nb]  # [rps, mx, v*h, 64, B, nsegs]
-        off += nb
-        xc = xc.reshape(rows_per_seg, mcus_x, c.v, c.h, 64, B, nsegs)
-        # → [B, nsegs, rps, v, mx, h, 64]
-        xc = xc.permute(5, 6, 0, 2, 1, 3, 4)
-        xc = xc.reshape(B, nsegs * rows_per_seg * c.v, mcus_x * c.h, 64)
-        coefs.append(xc[:, :mcus_y * c.v])  # drop short-segment padding rows
-    return coefs
-
-
-@functools.lru_cache(maxsize=64)
-def _dc_index(mcus_x: int, mcus_y: int, hv: tuple, R: int, S: int,
-              device: torch.device):
-    """Per component, [mcus_y*v, mcus_x*h] indices into a DC scan's
-    flattened [R*bpm, S] output: block (row, col) is block b of MCU g, the
-    unit g % R of lane g // R."""
-    bpm = sum(h * v for h, v in hv)
-    maps = []
-    off = 0
-    for h, v in hv:
-        r = np.arange(mcus_y * v)[:, None]
-        q = np.arange(mcus_x * h)[None, :]
-        g = (r // v) * mcus_x + q // h
-        b = off + (r % v) * h + q % h
-        maps.append(torch.from_numpy((g % R * bpm + b) * S + g // R)
-                    .to(device))
-        off += h * v
-    return tuple(maps)
-
-
-@functools.lru_cache(maxsize=64)
-def _ac_index(cbw: int, cbh: int, R: int, S: int, device: torch.device):
-    """(gather, band) for an AC scan over a cbh x cbw block grid: gather
-    [cbh*cbw] indexes the [R*S] (unit, lane) rows of the output, block g
-    being unit g % R of lane g // R; band [R, S] is the block each
-    (unit, lane) holds, or cbh*cbw (a zero row) past the last block."""
-    units = cbw * cbh
-    g = np.arange(units)
-    gather = torch.from_numpy(g % R * S + g // R).to(device)
-    band = np.arange(R)[:, None] + np.arange(S)[None, :] * R
-    band = torch.from_numpy(np.minimum(band, units)).to(device)
-    return gather, band
+    return -(-est // 16) * 16
 
 
 # a restart-segment word matrix larger than this is refused (a corrupt
@@ -308,17 +254,29 @@ def split_staged(datas, nsegs: int, R: int, units: int, S: int, device):
 
 
 def staged_tables(tables: np.ndarray, device) -> torch.Tensor:
-    """Huffman tables in pinned staging, to go up with `upload`."""
-    t = stage(tables.shape, torch.int32, device)
-    t.numpy()[:] = tables
+    """Huffman tables [..., 34 + nv] and their lookahead rows in one pinned
+    int32 staging buffer (the rows behind the tables, two int16 entries a
+    word), to go up with `upload`; `uploaded_tables` splits it again."""
+    look = lookahead_tables(tables)
+    t = stage((tables.size + look.size // 2,), torch.int32, device)
+    t.numpy()[:tables.size] = tables.reshape(-1)
+    t.numpy()[tables.size:] = look.reshape(-1).view(np.int32)
     return t
+
+
+def uploaded_tables(buf: torch.Tensor, tables: np.ndarray):
+    """(tables, look) views of an uploaded `staged_tables` buffer."""
+    rows = tables.size // tables.shape[-1]
+    look = buf[tables.size:].view(torch.int16).view(rows, -1)
+    return buf[:tables.size].view(tables.shape), look
 
 
 def decode_progressive_device(frame, raw: bytes, device) -> List[torch.Tensor]:
     """Decode a Huffman-coded progressive stream with restart markers in
     every scan on `device`, scan by scan with K3 (each scan's words, side
-    and tables go up in pinned, asynchronous copies): the DC scan, the AC
-    band scans and the successive-approximation refinement scans. Returns
+    and tables go up in pinned, asynchronous copies; the kernel reads and
+    writes the planes in place): the DC scan, the AC band scans and the
+    successive-approximation refinement scans. Returns
     per-component zigzag [mcus_y*v, mcus_x*h, 64] int16 planes (padded MCU
     grid) on the device. Raises ValueError outside K3's scope, when a scan
     does not split into its restart segments, or when K3 flags a lane."""
@@ -339,14 +297,12 @@ def decode_progressive_device(frame, raw: bytes, device) -> List[torch.Tensor]:
         kind = prog_scan_kind(scan)
         R = scan.restart_interval
         if scan.ss == 0:
+            ci, cbw, cbh = 0, mcus_x, mcus_y  # not read by a DC scan
             units = mcus_x * mcus_y
-            comp_map = tuple(ci for ci, (h, v) in enumerate(hv)
-                             for _ in range(h * v))
         else:
             ci = scan.comp_indices[0]
             cbw, cbh = frame.comp_true_blocks(frame.components[ci])
             units = cbw * cbh
-            comp_map = (0,)
         nsegs = -(-units // R)
         S = -(-nsegs // 128) * 128
         with span("imgcodec.jpeg.prog_split"):
@@ -359,35 +315,15 @@ def decode_progressive_device(frame, raw: bytes, device) -> List[torch.Tensor]:
             if n != nsegs:
                 raise ValueError(f"prog device entropy: scan split into {n} "
                                  f"segments, expected {nsegs}")
-            tables = staged_tables(prog_scan_tables(frame, scan), device)
+            tables = prog_scan_tables(frame, scan)
+            staged = staged_tables(tables, device)
         with span("imgcodec.jpeg.prog_kernel"):
-            words_d, side_d, tables_d = upload([words, side, tables], device)
-            band_in = None
-            if scan.ss != 0:
-                gather, band = _ac_index(cbw, cbh, R, S, device)
-                if kind == "acref":
-                    # the band's current state goes up with the scan
-                    cur = planes[ci][:cbh, :cbw].reshape(units, 64)
-                    cur = torch.cat([cur, cur.new_zeros((1, 64))])
-                    band_in = cur[band].permute(0, 2, 1).contiguous()
-            out, err = decode_prog_scan(kind, words_d, side_d, tables_d, R,
-                                        len(comp_map), comp_map, scan.ss,
-                                        scan.se, scan.al, band_in)
+            words_d, side_d, tabs_d = upload([words, side, staged], device)
+            tables_d, look_d = uploaded_tables(tabs_d, tables)
+            err = decode_prog_scan_into(
+                kind, words_d, side_d, tables_d, look_d, planes, R, hv,
+                mcus_x, ci, (cbw, cbh), scan.ss, scan.se, scan.al)
             flags.append(err[:nsegs])
-        with span("imgcodec.jpeg.prog_scatter"):
-            if scan.ss == 0:
-                flat = out.reshape(-1)
-                for plane, idx in zip(planes, _dc_index(mcus_x, mcus_y, hv,
-                                                        R, S, device)):
-                    if scan.ah == 0:
-                        plane[..., 0] = flat[idx]
-                    else:  # refinement: OR bit << al (T.81 G.1.2.1)
-                        plane[..., 0] |= flat[idx]
-            else:
-                n = scan.se - scan.ss + 1
-                rows = out[:, scan.ss:scan.se + 1].permute(0, 2, 1)
-                planes[ci][:cbh, :cbw, scan.ss:scan.se + 1] = (
-                    rows.reshape(-1, n)[gather].reshape(cbh, cbw, n))
     with span("imgcodec.jpeg.prog_flags"):
         flagged = bool(torch.cat(flags).any())  # the stream's one sync
     if flagged:

@@ -1,27 +1,30 @@
 """K2 (baseline) and K3 (progressive) JPEG Huffman decode, one segment per
-lane.
+lane, stored where the pixel stage reads it.
 
-`decode_segments` replaces the Pallas kernel of
-nvimagecodec_tpu/ops/pallas_entropy.py (`_build_kernel`) with the same
-inputs and outputs: words [W, S] (uint32 bits, held as int32), side [6, S]
-int32 → coefficients [R*bpm, 64, S] int16 in zigzag order and err [S] int32.
-A CUDA tensor goes to the hand-written kernel in csrc/huffman.cu; a CPU
-tensor goes to `decode_segments_plain`, the same decode in plain PyTorch,
-vectorised over lanes with one symbol step per iteration.
+`decode_segments_into` replaces the Pallas kernel of
+nvimagecodec_tpu/ops/pallas_entropy.py (`_build_kernel`) and the reassembly
+behind it: words [W, S] (uint32 bits, held as int32), side [6, S] int32 →
+per-component zigzag stacks [B, bh, bw, 64] int16 and err [S] int32. A CUDA
+tensor goes to the hand-written kernel in csrc/huffman.cu; a CPU tensor goes
+to `decode_segments_into_plain`: `decode_segments_plain` (the TPU kernel's
+contract, [R*bpm, 64, S], in plain PyTorch, vectorised over lanes with one
+symbol step per iteration), then `reassemble_components`, then a copy.
 
-`decode_prog_scan` does the same for one progressive scan and replaces
-`_build_prog_kernel` (csrc/prog_huffman.cu; plain version
-`decode_prog_scan_plain`).
+`decode_prog_scan_into` does the same for one progressive scan, in place on
+the stream's coefficient planes, and replaces `_build_prog_kernel` with the
+gather before it and the scatter after it (csrc/prog_huffman.cu; plain
+version `decode_prog_scan_into_plain` around `decode_prog_scan_plain`).
 
 `huffman_tables` turns the numpy table form of `entropy_kernel_spec`
-(maxcode/base/values per component) into the int32
-table tensor both K2 versions read; `prog_scan_tables` builds K3's from a
-scan's own table snapshot.
+(maxcode/base/values per component) into the int32 table tensor both K2
+versions read; `prog_scan_tables` builds K3's from a scan's own table
+snapshot; `lookahead_tables` builds the kernels' lookahead rows from either.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -220,7 +223,9 @@ def _take(p32: torch.Tensor, ln: torch.Tensor, n: torch.Tensor):
 def decode_segments_plain(words: torch.Tensor, side: torch.Tensor,
                           tables: torch.Tensor, R: int,
                           comp_map: tuple) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 in plain PyTorch; same contract as `decode_segments`."""
+    """The TPU kernel's contract in plain PyTorch: words [W, S], side
+    [6, S], tables [ncomp, 2, 34 + nv] → (coefficients [R*bpm, 64, S]
+    int16 zigzag, lane-major, block mcu*bpm+b; err [S] int32)."""
     W, S = words.shape
     dev = words.device
     bpm = len(comp_map)
@@ -277,59 +282,206 @@ def decode_segments_plain(words: torch.Tensor, side: torch.Tensor,
     return out, err.to(torch.int32)
 
 
-def decode_segments(words: torch.Tensor, side: torch.Tensor,
-                    tables: torch.Tensor, R: int,
-                    comp_map: tuple) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Huffman-decode S segments: words [W, S] int32 (uint32 bits), side
-    [6, S] int32, tables from `huffman_tables` → (coefficients
-    [R*bpm, 64, S] int16 zigzag, err [S] int32). A CPU tensor takes the
-    plain version; a CUDA tensor launches K2 (csrc/huffman.cu) or raises."""
-    if words.device.type == "cpu":
-        return decode_segments_plain(words, side, tables, R, comp_map)
-    if words.device.type != "cuda":
-        raise ValueError(f"K2: unsupported device {words.device}")
+# Lookahead rows. L = 9 bits: a row is 1 KB, so K2's rows (two a component)
+# and a CTA's staged blocks stay far below the 48 KB a CTA gets without
+# asking. On an H100, K2 took 0.435 / 0.434 / 0.423 / 0.419 / 0.421 ms at
+# L = 7 / 8 / 9 / 10 / 11 (tools/bench_entropy.py --sweep): flat from 9 on.
+LOOK_BITS = 9
+
+_LOOK_CACHE: dict = {}
+
+
+def lookahead_tables(tables: np.ndarray, L: int = LOOK_BITS) -> np.ndarray:
+    """Lookahead rows for canonical table rows [..., 34 + nv] (K2's
+    [ncomp, 2, 34 + nv] or K3's [ntab, 34 + nv]) → int16 [rows, 1 << L].
+    Entry p is (len << 8) | symbol when the L-bit prefix p starts with a
+    code of len <= L bits, and 0 (escape: the kernel walks the canonical
+    row) when its code is longer or missing. Built by running the canonical
+    walk — the first length l whose l-bit prefix is <= maxcode[l], value
+    index code + base[l], an index outside [0, nv) reading 0 — on every
+    prefix, so the kernels' two decodes agree by construction. Cached by
+    content."""
+    if not 1 <= L <= 12:
+        raise ValueError("lookahead tables: 1 <= L <= 12")
+    rows = np.ascontiguousarray(tables, np.int32).reshape(
+        -1, tables.shape[-1])
+    key = (L, rows.shape, rows.tobytes())
+    hit = _LOOK_CACHE.get(key)
+    if hit is not None:
+        return hit
+    nv = rows.shape[1] - TAB_HEADER
+    prefix = np.arange(1 << L, dtype=np.int64)
+    out = np.zeros((rows.shape[0], 1 << L), np.int16)
+    for r, row in enumerate(rows):
+        row = row.astype(np.int64)
+        found = np.zeros(1 << L, bool)
+        for ln in range(1, L + 1):
+            code = prefix >> (L - ln)
+            hit_l = ~found & (code <= row[ln])
+            idx = code + row[17 + ln]
+            inside = (idx >= 0) & (idx < nv)
+            sym = np.where(inside, row[TAB_HEADER + np.clip(idx, 0, nv - 1)],
+                           0)
+            if hit_l.any() and (sym[hit_l].max() > 255
+                                or sym[hit_l].min() < 0):
+                raise ValueError("lookahead tables: symbol outside a byte")
+            out[r, hit_l] = ((ln << 8) | sym[hit_l]).astype(np.int16)
+            found |= hit_l
+    if len(_LOOK_CACHE) > 4096:
+        _LOOK_CACHE.clear()
+    _LOOK_CACHE[key] = out
+    return out
+
+
+def comp_map_of(hv) -> tuple:
+    """The component of each block of an MCU, for (h, v) per component."""
+    return tuple(ci for ci, (h, v) in enumerate(hv) for _ in range(h * v))
+
+
+def reassemble_components(out: torch.Tensor, hv, mcus_x: int, mcus_y: int,
+                          B: int, nsegs: int, R: int) -> List[torch.Tensor]:
+    """[R*bpm, 64, S] lane-major output of `decode_segments_plain` →
+    per-component [B, mcus_y*v, mcus_x*h, 64] zigzag views (strided; each
+    segment is R // mcus_x whole MCU rows, and the rows a short last
+    segment pads are dropped)."""
+    rows_per_seg = R // mcus_x
+    bpm = sum(h * v for h, v in hv)
+    S = out.shape[2]
+    x = out.reshape(rows_per_seg, mcus_x, bpm, 64, S)[..., :B * nsegs]
+    x = x.reshape(rows_per_seg, mcus_x, bpm, 64, B, nsegs)
+    coefs = []
+    off = 0
+    for h, v in hv:
+        xc = x[:, :, off:off + h * v]  # [rps, mx, v*h, 64, B, nsegs]
+        off += h * v
+        xc = xc.reshape(rows_per_seg, mcus_x, v, h, 64, B, nsegs)
+        # → [B, nsegs, rps, v, mx, h, 64]
+        xc = xc.permute(5, 6, 0, 2, 1, 3, 4)
+        xc = xc.reshape(B, nsegs * rows_per_seg * v, mcus_x * h, 64)
+        coefs.append(xc[:, :mcus_y * v])
+    return coefs
+
+
+def decode_segments_into_plain(words, side, tables, R: int, hv, mcus_x: int,
+                               mcus_y: int, B: int, nsegs: int):
+    """K2 in plain PyTorch; same contract as `decode_segments_into`: the
+    TPU kernel's lane-major decode, its reassembly, and the copy that made
+    the stacks contiguous."""
+    out, err = decode_segments_plain(words, side, tables, R, comp_map_of(hv))
+    views = reassemble_components(out, hv, mcus_x, mcus_y, B, nsegs, R)
+    return [v.contiguous() for v in views], err
+
+
+# K2's launch shape: lanes a warp (the other threads of the warp help their
+# lane move its blocks) and warps a CTA. On an H100, 6144 lanes took 0.61 /
+# 0.42 / 0.46 / 0.52 / 0.79 / 1.07 ms at 1 / 2 / 4 / 8 / 16 / 32 lanes a
+# warp, 8 warps a CTA (tools/bench_entropy.py --sweep): one lane a warp is
+# bound by instruction issue (6144 warps), many lanes a warp by every lane
+# waiting at each block's end for the warp's slowest.
+K2_LANES_PER_WARP = 2
+K2_WARPS = 8
+
+_SMEM_BUDGET = 48 * 1024
+_BLK_BYTES = 144  # a staged block in shared memory (csrc/huffman_common.cuh)
+
+
+def _check_lane_inputs(name, words, side, tables, look, tab_dim):
+    """Shape, type and device checks shared by K2 and K3."""
     W, S = words.shape
     dev = words.device
-    for name, t, shape in (("words", words, (W, S)), ("side", side, (6, S))):
+    for what, t, shape in (("words", words, (W, S)), ("side", side, (6, S))):
         if (t.dtype != torch.int32 or tuple(t.shape) != shape
                 or t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"K2: {name} must be contiguous int32 {shape} "
-                             f"on {dev}")
-    ncomp = tables.shape[0]
-    nv = tables.shape[-1] - TAB_HEADER
-    if (tables.dtype != torch.int32 or tables.dim() != 3
-            or tables.shape[1] != 2 or tables.device != dev
+            raise ValueError(f"{name}: {what} must be contiguous int32 "
+                             f"{shape} on {dev}")
+    if (tables.dtype != torch.int32 or tables.dim() != tab_dim
+            or tables.shape[-1] <= TAB_HEADER or tables.device != dev
             or not tables.is_contiguous()):
-        raise ValueError("K2: tables must be contiguous int32 "
-                         "[ncomp, 2, 34 + nv] on the words' device")
-    if tables.numel() * 4 > 48 * 1024:
+        raise ValueError(f"{name}: tables must be contiguous int32 "
+                         f"[..., 34 + nv] of {tab_dim} axes on the words' "
+                         "device")
+    rows = tables.numel() // tables.shape[-1]
+    L = look.shape[-1].bit_length() - 1 if look.dim() == 2 else 0
+    if (look.dtype != torch.int16 or look.dim() != 2
+            or tuple(look.shape) != (rows, 1 << L) or not 1 <= L <= 12
+            or look.device != dev or not look.is_contiguous()):
+        raise ValueError(f"{name}: look must be contiguous int16 "
+                         f"[{rows}, 1 << L] on the words' device")
+    if W < 2:
+        raise ValueError(f"{name}: needs W >= 2")
+    return L
+
+
+def _ptr_array(tensors):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _i32_array(values):
+    return (ctypes.c_int32 * len(values))(*values)
+
+
+def decode_segments_into(words: torch.Tensor, side: torch.Tensor,
+                         tables: torch.Tensor, look: torch.Tensor, R: int,
+                         hv, mcus_x: int, mcus_y: int, B: int,
+                         nsegs: int) -> Tuple[List[torch.Tensor],
+                                              torch.Tensor]:
+    """Huffman-decode a bucket of B images, nsegs segments of R MCUs (whole
+    MCU rows) each, lane b*nsegs + k being segment k of image b: words
+    [W, S] int32 (uint32 bits), side [6, S] int32, tables from
+    `huffman_tables`, look from `lookahead_tables`, hv the (h, v) sampling
+    factors per component → (per-component zigzag stacks
+    [B, mcus_y*v, mcus_x*h, 64] int16, contiguous, as the IDCT kernel
+    takes them; err [S] int32). A CPU tensor takes the plain version; a
+    CUDA tensor launches K2 (csrc/huffman.cu) or raises."""
+    hv = tuple((int(h), int(v)) for h, v in hv)
+    L = _check_lane_inputs("K2", words, side, tables, look, 3)
+    W, S = words.shape
+    if (not 1 <= len(hv) <= 4 or tables.shape[0] != len(hv)
+            or tables.shape[1] != 2
+            or any(not (1 <= h <= 4 and 1 <= v <= 4) for h, v in hv)):
+        raise ValueError("K2: 1-4 components with h, v in 1..4 and tables "
+                         "[ncomp, 2, 34 + nv]")
+    if (mcus_x < 1 or mcus_y < 1 or R < 1 or R % mcus_x or nsegs < 1
+            or B < 0 or B * nsegs > S or nsegs * (R // mcus_x) < mcus_y):
+        raise ValueError("K2: needs segments of whole MCU rows that cover "
+                         "the image, and B * nsegs <= S")
+    if words.device.type == "cpu":
+        return decode_segments_into_plain(words, side, tables, R, hv, mcus_x,
+                                          mcus_y, B, nsegs)
+    if words.device.type != "cuda":
+        raise ValueError(f"K2: unsupported device {words.device}")
+    dev = words.device
+    lpw, warps = K2_LANES_PER_WARP, K2_WARPS
+    if (tables.numel() * 4 + look.numel() * 2
+            + lpw * warps * _BLK_BYTES > _SMEM_BUDGET):
         raise ValueError("K2: Huffman tables exceed the shared-memory budget")
-    bpm = len(comp_map)
-    out = torch.empty((R * bpm, 64, S), dtype=torch.int16, device=dev)
+    stacks = [torch.empty((B, mcus_y * v, mcus_x * h, 64), dtype=torch.int16,
+                          device=dev) for h, v in hv]
     err = torch.empty((S,), dtype=torch.int32, device=dev)
-    cmap = np.asarray(comp_map, np.int32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.lib().tic_huffman_decode(
-        words.data_ptr(), W, S, side.data_ptr(), tables.data_ptr(), ncomp, nv,
-        cmap.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        bpm, R, out.data_ptr(), err.data_ptr(), stream)
+    rc = _build.lib().tic_huffman_decode_into(
+        words.data_ptr(), W, S, side.data_ptr(), tables.data_ptr(), len(hv),
+        tables.shape[-1] - TAB_HEADER, look.data_ptr(), L,
+        _i32_array([x for pair in hv for x in pair]), mcus_x,
+        mcus_y, R, B, nsegs, _ptr_array(stacks), err.data_ptr(), lpw, warps,
+        stream)
     _build.check(rc, "K2 huffman launch")
-    decode_segments.launches += 1
-    return out, err
+    decode_segments_into.launches += 1
+    return stacks, err
 
 
-decode_segments.launches = 0
-
+decode_segments_into.launches = 0
 
 # K3: progressive Huffman decode of one scan, one restart segment per lane.
 #
-# `decode_prog_scan` replaces the Pallas kernel of
-# nvimagecodec_tpu/ops/pallas_entropy.py (`_build_prog_kernel`) with the same
-# inputs and outputs. Four kinds: "dc" (first DC scan, interleaved), "dcref"
-# (DC refinement, one raw bit per block), "ac" (first AC band scan of one
-# component) and "acref" (AC refinement, T.81 G.1.2.3, which reads the
-# current band). A CUDA tensor goes to csrc/prog_huffman.cu; a CPU tensor to
-# `decode_prog_scan_plain`.
+# `decode_prog_scan_into` replaces the Pallas kernel of
+# nvimagecodec_tpu/ops/pallas_entropy.py (`_build_prog_kernel`) and the
+# gather and scatter around it. Four kinds: "dc" (first DC scan,
+# interleaved), "dcref" (DC refinement, one raw bit per block), "ac" (first
+# AC band scan of one component) and "acref" (AC refinement, T.81 G.1.2.3,
+# which reads the current band). A CUDA tensor goes to
+# csrc/prog_huffman.cu; a CPU tensor to `decode_prog_scan_into_plain`, which
+# is built on `decode_prog_scan_plain`, the TPU kernel's own contract.
 
 PROG_KINDS = ("dc", "dcref", "ac", "acref")
 
@@ -384,9 +536,12 @@ def decode_prog_scan_plain(kind: str, words: torch.Tensor, side: torch.Tensor,
                            tables: torch.Tensor, R: int, bpm: int,
                            comp_map: tuple, ss: int, se: int, al: int,
                            band_in=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 in plain PyTorch; same contract as `decode_prog_scan`. Lanes
-    advance together, one masked step per iteration, and every lane's
-    state carries from one unit to the next as in the TPU kernel."""
+    """The TPU kernel's contract in plain PyTorch: → (out [NBLK, OUTK, S]
+    int16, err [S] int32). "dc"/"dcref": NBLK = R*bpm, OUTK = 1 (values,
+    or bit << al to OR in). "ac"/"acref": NBLK = R, OUTK = 64 (zigzag rows
+    ss..se filled; "acref" returns band_in [R, 64, S] int16 refined).
+    Lanes advance together, one masked step per iteration, and every
+    lane's state carries from one unit to the next as in the TPU kernel."""
     W, S = words.shape
     dev = words.device
     i64 = torch.int64
@@ -511,66 +666,161 @@ def decode_prog_scan_plain(kind: str, words: torch.Tensor, side: torch.Tensor,
     return out, err.to(torch.int32)
 
 
-def decode_prog_scan(kind: str, words: torch.Tensor, side: torch.Tensor,
-                     tables: torch.Tensor, R: int, bpm: int, comp_map: tuple,
-                     ss: int, se: int, al: int,
-                     band_in=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Huffman-decode one progressive scan's S restart segments: words
-    [W, S] int32 (uint32 bits), side [6, S] int32 (units per lane, start
-    bit, DC seeds), tables from `prog_scan_tables` → (out [NBLK, OUTK, S]
-    int16, err [S] int32). "dc"/"dcref": NBLK = R*bpm, OUTK = 1 (values,
-    or bit << al to OR in). "ac"/"acref": NBLK = R, OUTK = 64 (zigzag rows
-    ss..se filled; "acref" returns band_in [R, 64, S] int16 refined). A CPU
-    tensor takes the plain version; a CUDA tensor launches K3
-    (csrc/prog_huffman.cu) or raises."""
+@functools.lru_cache(maxsize=64)
+def _dc_index(mcus_x: int, mcus_y: int, hv: tuple, R: int, S: int,
+              device: torch.device):
+    """Per component, [mcus_y*v, mcus_x*h] indices into a DC scan's
+    flattened [R*bpm, S] output: block (row, col) is block b of MCU g, the
+    unit g % R of lane g // R."""
+    bpm = sum(h * v for h, v in hv)
+    maps = []
+    off = 0
+    for h, v in hv:
+        r = np.arange(mcus_y * v)[:, None]
+        q = np.arange(mcus_x * h)[None, :]
+        g = (r // v) * mcus_x + q // h
+        b = off + (r % v) * h + q % h
+        maps.append(torch.from_numpy((g % R * bpm + b) * S + g // R)
+                    .to(device))
+        off += h * v
+    return tuple(maps)
+
+
+@functools.lru_cache(maxsize=64)
+def _ac_index(cbw: int, cbh: int, R: int, S: int, device: torch.device):
+    """(gather, band) for an AC scan over a cbh x cbw block grid: gather
+    [cbh*cbw] indexes the [R*S] (unit, lane) rows of the output, block g
+    being unit g % R of lane g // R; band [R, S] is the block each
+    (unit, lane) holds, or cbh*cbw (a zero row) past the last block."""
+    units = cbw * cbh
+    g = np.arange(units)
+    gather = torch.from_numpy(g % R * S + g // R).to(device)
+    band = np.arange(R)[:, None] + np.arange(S)[None, :] * R
+    band = torch.from_numpy(np.minimum(band, units)).to(device)
+    return gather, band
+
+
+def decode_prog_scan_into_plain(kind: str, words, side, tables, planes,
+                                R: int, hv, mcus_x: int, comp: int, grid,
+                                ss: int, se: int, al: int) -> torch.Tensor:
+    """K3 in plain PyTorch; same contract as `decode_prog_scan_into`: the
+    TPU kernel's lane-major decode (`decode_prog_scan_plain`) between the
+    gather of the band and the scatter into the planes."""
+    S = words.shape[1]
+    dev = words.device
+    if kind in ("dc", "dcref"):
+        mcus_y = planes[0].shape[0] // hv[0][1]
+        cmap = comp_map_of(hv)
+        out, err = decode_prog_scan_plain(kind, words, side, tables, R,
+                                          len(cmap), cmap, ss, se, al)
+        flat = out.reshape(-1)
+        for plane, idx in zip(planes, _dc_index(mcus_x, mcus_y, tuple(hv), R,
+                                                S, dev)):
+            if kind == "dc":
+                plane[..., 0] = flat[idx]
+            else:  # refinement: OR bit << al (T.81 G.1.2.1)
+                plane[..., 0] |= flat[idx]
+        return err
+    cbw, cbh = grid
+    units = cbw * cbh
+    gather, band = _ac_index(cbw, cbh, R, S, dev)
+    band_in = None
+    if kind == "acref":
+        cur = planes[comp][:cbh, :cbw].reshape(units, 64)
+        cur = torch.cat([cur, cur.new_zeros((1, 64))])
+        band_in = cur[band].permute(0, 2, 1).contiguous()
+    out, err = decode_prog_scan_plain(kind, words, side, tables, R, 1, (0,),
+                                      ss, se, al, band_in)
+    n = se - ss + 1
+    rows = out[:, ss:se + 1].permute(0, 2, 1)
+    planes[comp][:cbh, :cbw, ss:se + 1] = (
+        rows.reshape(-1, n)[gather].reshape(cbh, cbw, n))
+    return err
+
+
+# K3's launch shape: a scan has few lanes, so a warp serves one and the scan
+# spreads over as many SMs as it has segments. Warps a CTA: the 10 scans of
+# a 375x500 stream took 0.243 / 0.232 / 0.226 / 0.234 ms at 1 / 2 / 4 / 8 on
+# an H100 (tools/bench_entropy.py --sweep).
+K3_WARPS = 4
+
+
+def decode_prog_scan_into(kind: str, words: torch.Tensor, side: torch.Tensor,
+                          tables: torch.Tensor, look: torch.Tensor, planes,
+                          R: int, hv, mcus_x: int, comp: int, grid, ss: int,
+                          se: int, al: int) -> torch.Tensor:
+    """Huffman-decode one progressive scan's restart segments (R units a
+    lane; lane s holds units s*R on) in place on `planes`, the stream's
+    per-component zigzag planes [mcus_y*v, mcus_x*h, 64] int16 (contiguous,
+    padded MCU grid): words [W, S] int32 (uint32 bits), side [6, S] int32
+    (units per lane, start bit, DC seeds), tables from `prog_scan_tables`,
+    look from `lookahead_tables`, hv the (h, v) per component → err [S]
+    int32.
+
+    "dc": unit = MCU of the interleaved grid, coefficient 0 of its blocks
+    := value; "dcref": coefficient 0 |= bit << al. `comp` and `grid` are
+    not read. "ac"/"acref": unit = block of component `comp`'s true block
+    grid, grid = (cbw, cbh); positions ss..se of the block are set, or
+    refined. A unit of the grid that its lane does not decode (past
+    side[0, s]) is zeroed by "dc" and "ac" and left as it is by the
+    refinements. A CPU tensor takes the plain version; a CUDA tensor
+    launches K3 (csrc/prog_huffman.cu) or raises."""
     if kind not in PROG_KINDS:
         raise ValueError(f"K3: unknown kind {kind!r}")
-    if (band_in is not None) != (kind == "acref"):
-        raise ValueError("K3: band_in is given for kind 'acref' and no other")
-    if words.device.type == "cpu":
-        return decode_prog_scan_plain(kind, words, side, tables, R, bpm,
-                                      comp_map, ss, se, al, band_in)
-    if words.device.type != "cuda":
-        raise ValueError(f"K3: unsupported device {words.device}")
+    dc = kind in ("dc", "dcref")
+    hv = tuple((int(h), int(v)) for h, v in hv)
+    L = _check_lane_inputs("K3", words, side, tables, look, 2)
     W, S = words.shape
     dev = words.device
-    dc = kind in ("dc", "dcref")
-    nblk = R * bpm if dc else R
-    checks = [("words", words, (W, S), torch.int32),
-              ("side", side, (6, S), torch.int32)]
-    if band_in is not None:
-        checks.append(("band_in", band_in, (R, 64, S), torch.int16))
-    for name, t, shape, dtype in checks:
-        if (t.dtype != dtype or tuple(t.shape) != shape or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"K3: {name} must be contiguous {dtype} {shape} "
-                             f"on {dev}")
-    if W < 2 or not 1 <= bpm <= 64 or len(comp_map) != bpm:
-        raise ValueError("K3: needs W >= 2 and 1 <= bpm == len(comp_map) "
-                         "<= 64")
-    ntab = tables.shape[0]
-    nv = tables.shape[-1] - TAB_HEADER
-    if (tables.dtype != torch.int32 or tables.dim() != 2
-            or not 1 <= ntab <= 4 or nv < 1 or tables.device != dev
-            or not tables.is_contiguous()):
-        raise ValueError("K3: tables must be contiguous int32 "
-                         "[ncomp <= 4, 34 + nv] on the words' device")
-    if tables.numel() * 4 > 48 * 1024:
+    planes = list(planes)
+    if (not 1 <= len(hv) <= 4 or len(planes) != len(hv)
+            or any(not (1 <= h <= 4 and 1 <= v <= 4) for h, v in hv)):
+        raise ValueError("K3: 1-4 components with h, v in 1..4, a plane each")
+    if (not 0 <= ss <= se <= 63 or dc != (ss == 0) or not 0 <= al <= 15
+            or R < 1 or mcus_x < 1 or not 1 <= tables.shape[0] <= 4):
+        raise ValueError("K3: bad band, shift, interval or table count")
+    mcus_y = planes[0].shape[0] // hv[0][1] if planes[0].dim() == 3 else 0
+    for p, (h, v) in zip(planes, hv):
+        if (p.dtype != torch.int16 or p.device != dev
+                or tuple(p.shape) != (mcus_y * v, mcus_x * h, 64)
+                or not p.is_contiguous()):
+            raise ValueError("K3: planes must be contiguous int16 "
+                             "[mcus_y*v, mcus_x*h, 64] on the words' device")
+    if dc:
+        if kind == "dc" and tables.shape[0] < len(hv):
+            raise ValueError("K3: a DC scan needs a table row a component")
+        width, units = mcus_x, mcus_x * mcus_y
+    else:
+        cbw, cbh = grid
+        if (not 0 <= comp < len(hv) or not 1 <= cbw <= planes[comp].shape[1]
+                or not 1 <= cbh <= planes[comp].shape[0]):
+            raise ValueError("K3: the block grid must lie inside its plane")
+        width, units = cbw, cbw * cbh
+    if units > S * R:
+        raise ValueError("K3: the scan's units exceed S lanes of R")
+    if dev.type == "cpu":
+        return decode_prog_scan_into_plain(kind, words, side, tables, planes,
+                                           R, hv, mcus_x, comp, grid, ss, se,
+                                           al)
+    if dev.type != "cuda":
+        raise ValueError(f"K3: unsupported device {dev}")
+    warps = K3_WARPS
+    if (tables.numel() * 4 + look.numel() * 2
+            + warps * 128 > _SMEM_BUDGET):  # and a warp's staged words
         raise ValueError("K3: Huffman tables exceed the shared-memory budget")
-    out = torch.empty((nblk, 1 if dc else 64, S), dtype=torch.int16,
-                      device=dev)
+    mine = planes if dc else [planes[comp]]
+    hv_p = _i32_array([x for pair in (hv if dc else [(1, 1)]) for x in pair])
+    cols_p = _i32_array([p.shape[1] for p in mine])
     err = torch.empty((S,), dtype=torch.int32, device=dev)
-    cmap = np.asarray(comp_map, np.int32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.lib().tic_prog_huffman_decode(
+    rc = _build.lib().tic_prog_huffman_decode_into(
         PROG_KINDS.index(kind), words.data_ptr(), W, S, side.data_ptr(),
-        tables.data_ptr(), ntab, nv,
-        cmap.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), bpm, R, ss, se,
-        al, band_in.data_ptr() if band_in is not None else None,
-        out.data_ptr(), err.data_ptr(), stream)
+        tables.data_ptr(), tables.shape[0], tables.shape[-1] - TAB_HEADER,
+        look.data_ptr(), L, len(mine), hv_p, cols_p, _ptr_array(mine), width,
+        units, R, ss, se, al, err.data_ptr(), warps, stream)
     _build.check(rc, "K3 progressive huffman launch")
-    decode_prog_scan.launches += 1
-    return out, err
+    decode_prog_scan_into.launches += 1
+    return err
 
 
-decode_prog_scan.launches = 0
+decode_prog_scan_into.launches = 0

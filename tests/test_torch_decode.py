@@ -207,7 +207,7 @@ def test_device_stage_error_raises(bucket, entry, monkeypatch):
 
 
 def test_flagged_lanes_are_reissued_to_host_route(bucket, monkeypatch):
-    real = jb.decode_segments
+    real = jb.decode_segments_into
 
     def flag_first_image(*args):
         out, err = real(*args)
@@ -215,7 +215,7 @@ def test_flagged_lanes_are_reissued_to_host_route(bucket, monkeypatch):
         err[0] = 1
         return out, err
 
-    monkeypatch.setattr(jb, "decode_segments", flag_first_image)
+    monkeypatch.setattr(jb, "decode_segments_into", flag_first_image)
     before = dict(jb.ROUTES)
     out = port.Decoder(device="cpu").decode(bucket)
     assert jb.ROUTES["reissued"] - before["reissued"] == 1

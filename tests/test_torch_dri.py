@@ -93,7 +93,7 @@ def test_stray_restart_markers_fail_or_reroute_alone():
 def test_flagged_sample_is_reissued_to_host_route(monkeypatch):
     datas = _dri_jpgs(BUCKET)
     nsegs = jb.route_plan(parse_jpeg_structure(datas[0]))[3]
-    real = jb.decode_segments
+    real = jb.decode_segments_into
 
     def flag_second_image(*args):
         out, err = real(*args)
@@ -101,7 +101,7 @@ def test_flagged_sample_is_reissued_to_host_route(monkeypatch):
         err[nsegs + 1] = 1
         return out, err
 
-    monkeypatch.setattr(jb, "decode_segments", flag_second_image)
+    monkeypatch.setattr(jb, "decode_segments_into", flag_second_image)
     before = dict(jb.ROUTES)
     out = port.Decoder(device="cpu").decode(datas)
     assert _routes(before)["reissued"] == 1
@@ -163,5 +163,7 @@ def test_split_declines_oversized_bucket(monkeypatch):
 
 
 def test_words_estimate_is_reference_guess():
-    assert de.words_estimate(4000, 10) == 256
-    assert de.words_estimate(40000, 10) == 2048
+    # twice the mean segment and 16 more, in rows of 16 words
+    assert de.words_estimate(4000, 10) == 224
+    assert de.words_estimate(40000, 10) == 2016
+    assert de.words_estimate(100, 10) == 32

@@ -1,10 +1,13 @@
 """K2 (baseline Huffman decode) of the CUDA port against the JAX package.
 
-On the CPU the K2 wrapper runs its plain PyTorch version. It must match
-the Pallas kernel run in interpret mode (as tests/test_device_entropy.py
-runs it) bit for bit, coefficients and error flags both, on index-scanned
-words (the main path) and on restart-split words, and the reassembled
-coefficients must equal the pure-Python host decoder's.
+On the CPU the K2 wrapper runs its plain PyTorch version, which is built on
+`decode_segments_plain`, the TPU kernel's own contract. That must match the
+Pallas kernel run in interpret mode (as tests/test_device_entropy.py runs
+it) bit for bit, coefficients and error flags both, on index-scanned words
+(the main path) and on restart-split words, and the stacks of
+`decode_segments_into` must equal the pure-Python host decoder's
+(tests/test_torch_entropy_into.py holds them against the reference's
+reassembly).
 """
 import numpy as np
 import pytest
@@ -21,9 +24,6 @@ from nvimagecodec_tpu.codecs.jpeg.entropy_py import decode_coefficients
 from nvimagecodec_tpu.codecs.jpeg.headers import parse_jpeg_structure
 from nvimagecodec_tpu.codecs.jpeg.pixel import ZIGZAG_NAT
 from nvimagecodec_tpu.ops.pallas_entropy import decode_segments_device
-from nvimagecodec_tpu_torch.codecs.jpeg.device_entropy import (
-    reassemble_components,
-)
 from nvimagecodec_tpu_torch.ops import entropy_kernels as ek
 from util import make_photo
 
@@ -82,13 +82,23 @@ def _dri_words(datas):
     return f0, words, side, f0.restart_interval, nsegs
 
 
+def _into_args(frame, words, side, R):
+    """`decode_segments_into`'s arguments up to mcus_y, on the CPU."""
+    R2, _comp_map, tables = ek.huffman_tables(frame, R)
+    mx, my = _mcus(frame)
+    return (torch.from_numpy(words.view(np.int32)), torch.from_numpy(side),
+            torch.from_numpy(tables),
+            torch.from_numpy(ek.lookahead_tables(tables)), R2,
+            [(c.h, c.v) for c in frame.components], mx, my)
+
+
 def _both(frame, words, side, R):
     """(reference out, reference err, port out, port err) as numpy."""
     out_j, err_j = decode_segments_device(
         frame, words, side[0], interpret=True, R=R, start_bits=side[1],
         dc0=side[2:6])
     R2, comp_map, tables = ek.huffman_tables(frame, R)
-    out_t, err_t = ek.decode_segments(
+    out_t, err_t = ek.decode_segments_plain(
         torch.from_numpy(words.view(np.int32)), torch.from_numpy(side),
         torch.from_numpy(tables), R2, comp_map)
     return (np.asarray(out_j), np.asarray(err_j), out_t.numpy(),
@@ -129,12 +139,9 @@ def test_corrupted_lane_flags_match_pallas():
 def test_reassembled_vs_python_host_decoder(ss):
     datas = [_encode(ss, s) for s in (9, 10)]
     frame, words, side, R, nsegs = _idx_words(datas)
-    R2, comp_map, tables = ek.huffman_tables(frame, R)
-    out, err = ek.decode_segments(
-        torch.from_numpy(words.view(np.int32)), torch.from_numpy(side),
-        torch.from_numpy(tables), R2, comp_map)
-    assert not err.any()
-    comps = reassemble_components(out, frame, len(datas), nsegs, R)
+    comps, err = ek.decode_segments_into(*_into_args(frame, words, side, R),
+                                         len(datas), nsegs)
+    assert not err.any() and all(c.is_contiguous() for c in comps)
     nat = torch.from_numpy(np.argsort(ZIGZAG_NAT))
     for i, d in enumerate(datas):
         ref = decode_coefficients(parse_jpeg_structure(d), d)
@@ -154,20 +161,21 @@ def test_tables_tensor_layout():
 
 
 def test_cpu_wrapper_uses_plain_version():
-    frame, words, side, R, _ = _idx_words([_encode("444", 12)])
-    R2, comp_map, tables = ek.huffman_tables(frame, R)
-    args = (torch.from_numpy(words.view(np.int32)), torch.from_numpy(side),
-            torch.from_numpy(tables), R2, comp_map)
-    before = ek.decode_segments.launches
-    out, err = ek.decode_segments(*args)
-    assert ek.decode_segments.launches == before
-    ref_out, ref_err = ek.decode_segments_plain(*args)
-    assert torch.equal(out, ref_out) and torch.equal(err, ref_err)
+    frame, words, side, R, nsegs = _idx_words([_encode("444", 12)])
+    args = _into_args(frame, words, side, R)
+    before = ek.decode_segments_into.launches
+    out, err = ek.decode_segments_into(*args, 1, nsegs)
+    assert ek.decode_segments_into.launches == before
+    plain = args[:3] + args[4:]  # the plain version reads no lookahead rows
+    ref_out, ref_err = ek.decode_segments_into_plain(*plain, 1, nsegs)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref_out))
+    assert torch.equal(err, ref_err)
 
 
 def test_wrapper_refuses_other_devices():
     w = torch.zeros((4, 128), dtype=torch.int32, device="meta")
     s = torch.zeros((6, 128), dtype=torch.int32, device="meta")
     t = torch.zeros((1, 2, 35), dtype=torch.int32, device="meta")
+    k = torch.zeros((2, 512), dtype=torch.int16, device="meta")
     with pytest.raises(ValueError):
-        ek.decode_segments(w, s, t, 1, (0,))
+        ek.decode_segments_into(w, s, t, k, 1, [(1, 1)], 1, 1, 1, 1)

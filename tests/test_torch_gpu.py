@@ -99,26 +99,107 @@ def test_k1_rejects_bad_input(cuda):
         kernels.dequant_idct_blocks(x, M)
 
 
-def _k2_inputs(jpgs, n, dev):
+def _k2_args(jpgs, n, dev):
+    """`decode_segments_into`'s arguments for the first n streams, split as
+    the idx route splits them."""
     frames = {i: jb.parse_jpeg_structure(d) for i, d in enumerate(jpgs[:n])}
     raws = dict(enumerate(jpgs[:n]))
-    _kind, _key, R, nsegs = jb.route_plan(frames[0])
+    f0 = frames[0]
+    _kind, _key, R, nsegs = jb.route_plan(f0)
     ok, bad, bad_scan, words, side = jb.split_indexed(
         list(range(n)), frames, raws, R, nsegs, dev)
     assert len(ok) == n and not bad and not bad_scan
-    R, comp_map, tables = ek.huffman_tables(frames[0], R)
-    return words.to(dev), side.to(dev), torch.from_numpy(tables).to(dev), \
-        R, comp_map
+    R, _comp_map, tables = ek.huffman_tables(f0, R)
+    mx = -(-f0.width // (8 * f0.hmax))
+    my = -(-f0.height // (8 * f0.vmax))
+    return [words.to(dev), side.to(dev), torch.from_numpy(tables).to(dev),
+            torch.from_numpy(ek.lookahead_tables(tables)).to(dev), R,
+            [(c.h, c.v) for c in f0.components], mx, my, n, nsegs]
+
+
+def _k2_equal(args):
+    """K2 against its plain version on the same device inputs; err."""
+    before = ek.decode_segments_into.launches
+    stacks, err = ek.decode_segments_into(*args)
+    assert ek.decode_segments_into.launches == before + 1
+    want, err_p = ek.decode_segments_into_plain(*args[:3], *args[4:])
+    torch.cuda.synchronize()
+    for a, b in zip(stacks, want):
+        assert a.is_contiguous() and a.shape == b.shape and torch.equal(a, b)
+    assert torch.equal(err, err_p)
+    return err
 
 
 def test_k2_kernel_vs_plain(cuda, jpgs):
-    words, side, tables, R, comp_map = _k2_inputs(jpgs, 5, cuda)
-    words[3:7, 2] = -1  # a corrupted lane: no code is sixteen 1 bits
-    out, err = ek.decode_segments(words, side, tables, R, comp_map)
-    ref_out, ref_err = ek.decode_segments_plain(words, side, tables, R,
-                                                comp_map)
-    assert torch.equal(out, ref_out) and torch.equal(err, ref_err)
-    assert int(err[2]) == 1
+    args = _k2_args(jpgs, 5, cuda)
+    assert not _k2_equal(args).any()
+    args[0][3:7, 2] = -1  # a corrupted lane: no code is sixteen 1 bits
+    assert int(_k2_equal(args)[2]) == 1
+
+
+def _std_tables(ncomp):
+    """[ncomp, 2, 34 + nv] from the Annex K tables: luma, then chroma."""
+    from nvimagecodec_tpu_torch.codecs.jpeg.headers import HuffTable
+    from nvimagecodec_tpu_torch.codecs.jpeg.tables import (
+        STD_AC_CHROMA,
+        STD_AC_LUMA,
+        STD_DC_CHROMA,
+        STD_DC_LUMA,
+    )
+
+    def row(t):
+        return ek._canonical(HuffTable(list(t[0][1:]), list(t[1])))
+
+    pairs = [(row(STD_DC_LUMA), row(STD_AC_LUMA))] + \
+        [(row(STD_DC_CHROMA), row(STD_AC_CHROMA))] * (ncomp - 1)
+    nv = max(len(r) for pair in pairs for r in pair)
+    out = np.zeros((ncomp, 2, nv), np.int32)
+    for ci, pair in enumerate(pairs):
+        for tc, r in enumerate(pair):
+            out[ci, tc, :len(r)] = r
+    return out
+
+
+@pytest.mark.parametrize("hv,mcus_x,mcus_y,rows,B,S", [
+    ([(2, 2), (1, 1), (1, 1)], 5, 7, 2, 3, 128),   # a short last segment
+    ([(1, 1)], 9, 4, 1, 5, 21),                     # gray, S off the CTA
+    ([(1, 1), (1, 1), (1, 1)], 3, 5, 5, 67, 67),    # one segment an image
+    ([(4, 1), (1, 1), (1, 1)], 4, 3, 1, 2, 6),      # 4:1:1
+    ([(1, 2), (1, 1), (1, 1), (1, 2)], 2, 9, 4, 4, 13),  # 4 components
+])
+def test_k2_ragged_shapes_on_random_bits(cuda, hv, mcus_x, mcus_y, rows, B, S):
+    """Random words (every error path is met), lanes of 0 MCUs, short last
+    segments whose padding rows are dropped, S that is no multiple of the
+    lanes a CTA serves: stacks and err equal the plain version's."""
+    rng = np.random.default_rng(S)
+    R = rows * mcus_x
+    nsegs = -(-mcus_y // rows)
+    assert B * nsegs <= S
+    tables = _std_tables(len(hv))
+    words = rng.integers(-2**31, 2**31, (40, S), dtype=np.int64).astype(np.int32)
+    side = np.zeros((6, S), np.int32)
+    side[0, :B * nsegs] = R
+    side[0, nsegs - 1:B * nsegs:nsegs] = mcus_x * (mcus_y - (nsegs - 1) * rows)
+    side[0, 1] = 0  # a segment the packer gave up on
+    side[1] = rng.integers(0, 32, S)
+    side[2:6] = rng.integers(-500, 500, (4, S))
+    words[1:3, 0] = -1  # no code is sixteen 1 bits: lane 0 is flagged
+    args = [torch.from_numpy(words).to(cuda), torch.from_numpy(side).to(cuda),
+            torch.from_numpy(tables).to(cuda),
+            torch.from_numpy(ek.lookahead_tables(tables)).to(cuda), R, hv,
+            mcus_x, mcus_y, B, nsegs]
+    err = _k2_equal(args)
+    assert int(err[0]) == 1 and not err[B * nsegs:].any()
+
+
+def test_k2_rejects_bad_input(cuda, jpgs):
+    args = _k2_args(jpgs, 4, cuda)
+    for i, bad in ((0, args[0].to(torch.int64)), (0, args[0].T.contiguous().T),
+                   (3, args[3].cpu()), (3, args[3][:, :100])):
+        a = list(args)
+        a[i] = bad
+        with pytest.raises(ValueError):
+            ek.decode_segments_into(*a)
 
 
 def test_decoder_gpu_vs_cpu(cuda, jpgs):
@@ -147,31 +228,39 @@ def test_decoder_gpu_bitexact_equals_cpu(cuda, jpgs):
         assert torch.equal(g.array.cpu(), c.array)
 
 
+def _k3_equal(kind, inputs, before, geom):
+    """K3 against its plain version from the same planes; err."""
+    mine = [p.clone() for p in before]
+    want = [p.clone() for p in before]
+    n = ek.decode_prog_scan_into.launches
+    err = ek.decode_prog_scan_into(kind, *inputs, mine, *geom)
+    assert ek.decode_prog_scan_into.launches == n + 1
+    err_p = ek.decode_prog_scan_into_plain(kind, *inputs[:3], want, *geom)
+    torch.cuda.synchronize()
+    for a, b in zip(mine, want):
+        assert torch.equal(a, b)
+    assert torch.equal(err, err_p)
+    return err
+
+
 @pytest.fixture(scope="module")
 def k3_scans(cuda):
-    """Every scan of one committed progressive stream through K3 and its
-    plain version on the same device inputs: [(kind, kernel, plain)]."""
+    """Every scan of one committed progressive stream: [(kind, inputs on
+    the card, the planes before the scan, geometry)]."""
     data = torch_corpus.progressive_streams()[0]
     seen = []
-    real = de.decode_prog_scan
+    real = de.decode_prog_scan_into
 
-    def both(kind, words, side, tables, *rest):
-        before = ek.decode_prog_scan.launches
-        got = real(kind, words, side, tables, *rest)
-        assert ek.decode_prog_scan.launches == before + 1
-        want = ek.decode_prog_scan_plain(kind, words, side, tables, *rest)
-        bad = words.clone()
-        bad[1:5, 3] = -1  # a corrupted lane: no code is sixteen 1 bits
-        seen.append((kind, got, want, real(kind, bad, side, tables, *rest),
-                     ek.decode_prog_scan_plain(kind, bad, side, tables,
-                                               *rest)))
-        return got
+    def capture(kind, words, side, tables, look, planes, *geom):
+        seen.append((kind, (words, side, tables, look),
+                     [p.clone() for p in planes], geom))
+        return real(kind, words, side, tables, look, planes, *geom)
 
-    de.decode_prog_scan = both
+    de.decode_prog_scan_into = capture
     try:
         de.decode_progressive_device(parse_jpeg_structure(data), data, cuda)
     finally:
-        de.decode_prog_scan = real
+        de.decode_prog_scan_into = real
     torch.cuda.synchronize()
     return seen
 
@@ -180,12 +269,70 @@ def k3_scans(cuda):
 def test_k3_kernel_vs_plain(k3_scans, kind):
     runs = [r for r in k3_scans if r[0] == kind]
     assert runs
-    for _kind, got, want, got_bad, want_bad in runs:
-        for a, b in zip(got + got_bad, want + want_bad):
-            assert torch.equal(a, b)
-        assert not got[1].any()
-    if kind in ("dc", "ac"):
-        assert int(runs[0][3][1][3]) == 1
+    for n, (_kind, inputs, before, geom) in enumerate(runs):
+        assert not _k3_equal(kind, inputs, before, geom).any()
+        bad = (inputs[0].clone(),) + inputs[1:]
+        bad[0][1:5, 3] = -1  # a corrupted lane: no code is sixteen 1 bits
+        err = _k3_equal(kind, bad, before, geom)
+        if n == 0 and kind in ("dc", "ac"):
+            assert int(err[3]) == 1
+
+
+@pytest.mark.parametrize("kind,ss,se,al", [
+    ("dc", 0, 0, 1), ("dc", 0, 0, 0), ("dcref", 0, 0, 0), ("dcref", 0, 0, 15),
+    ("ac", 1, 5, 2), ("ac", 7, 7, 0), ("ac", 1, 63, 1), ("ac", 6, 63, 0),
+    ("acref", 1, 5, 1), ("acref", 9, 9, 0), ("acref", 1, 63, 0),
+    ("acref", 6, 63, 2)])
+@pytest.mark.parametrize("hv,mcus_x,mcus_y,R,S", [
+    ([(2, 2), (1, 1), (1, 1)], 5, 3, 4, 128),  # 4:2:0, a short last lane
+    ([(1, 1)], 7, 5, 3, 13),                   # 1 component, S off the CTA
+    ([(2, 1), (1, 1), (1, 1)], 3, 4, 20, 3),   # one lane holds every unit
+])
+def test_k3_ragged_shapes_on_random_bits(cuda, kind, ss, se, al, hv, mcus_x,
+                                         mcus_y, R, S):
+    """Random words on planes of random history (every error path is met):
+    lanes of 0 units, lanes that claim more units than the grid has, a true
+    block grid narrower than its plane, a band of one position, S that is
+    no multiple of the lanes a CTA serves. Planes and err equal the plain
+    version's."""
+    rng = np.random.default_rng(ss * 64 + se + S)
+    dc = ss == 0
+    comp = len(hv) - 1 if not dc else 0
+    h, v = hv[comp]
+    grid = None if dc else (mcus_x * h - (h > 1), mcus_y * v)
+    units = mcus_x * mcus_y if dc else grid[0] * grid[1]
+    assert units <= S * R
+    nsegs = -(-units // R)
+    std = _std_tables(len(hv))
+    tables = np.ascontiguousarray(std[:, 0] if kind == "dc" else std[:1, 1])
+    words = rng.integers(-2**31, 2**31, (48, S), dtype=np.int64).astype(np.int32)
+    side = np.zeros((6, S), np.int32)
+    side[0, :nsegs] = R  # the last lane claims units past the grid
+    if nsegs > 2:
+        side[0, 1] = 0
+    side[1] = rng.integers(0, 32, S)
+    if kind == "dc":
+        side[2:6] = rng.integers(-300, 300, (4, S))
+    planes = []
+    for ph, pv in hv:
+        p = rng.integers(-40, 40, (mcus_y * pv, mcus_x * ph, 64))
+        p[rng.random(p.shape) < 0.6] = 0
+        planes.append(torch.from_numpy(p.astype(np.int16)).to(cuda))
+    inputs = (torch.from_numpy(words).to(cuda), torch.from_numpy(side).to(cuda),
+              torch.from_numpy(tables).to(cuda),
+              torch.from_numpy(ek.lookahead_tables(tables)).to(cuda))
+    _k3_equal(kind, inputs, planes, (R, hv, mcus_x, comp, grid, ss, se, al))
+
+
+def test_k3_rejects_bad_planes(cuda, k3_scans):
+    kind, inputs, before, geom = next(r for r in k3_scans if r[0] == "ac")
+    wrong_type = [p.to(torch.int32) for p in before]
+    strided = [p.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+               for p in before]
+    on_host = [p.cpu() for p in before]
+    for planes in (wrong_type, strided, on_host, before[:1]):
+        with pytest.raises(ValueError):
+            ek.decode_prog_scan_into(kind, *inputs, planes, *geom)
 
 
 def test_progressive_route_gpu_vs_cpu(cuda):

@@ -1,10 +1,13 @@
 """K3 (progressive Huffman decode) and the progressive route of the CUDA
 port against the JAX package.
 
-On the CPU the K3 wrapper runs its plain PyTorch version. Per scan it must
+On the CPU the K3 wrapper runs its plain PyTorch version, which is built on
+`decode_prog_scan_plain`, the TPU kernel's own contract. Per scan that must
 equal the Pallas kernel run in interpret mode bit for bit, `out` and `err`,
 on the very inputs the reference's `decode_progressive_device` builds (a
-clean stream of each kind, and corrupted lanes). The port's
+clean stream of each kind, and corrupted lanes;
+tests/test_torch_entropy_into.py holds `decode_prog_scan_into`'s planes
+against the reference's scan by scan). The port's
 `decode_progressive_device` must equal the host entropy decoder on the
 reference's progressive battery, and the route's images must be within 1
 of the reference Decoder's (exact with bitexact).
@@ -43,9 +46,10 @@ def _comp_map(frame, scan):
 
 
 def _port_scan(frame, scan, words, seg_units, band_in):
-    """The port's K3 wrapper on the reference's numpy inputs."""
+    """The port's plain K3 (the TPU kernel's contract) on the reference's
+    numpy inputs."""
     cmap = _comp_map(frame, scan)
-    return ek.decode_prog_scan(
+    return ek.decode_prog_scan_plain(
         ek.prog_scan_kind(scan), torch.from_numpy(words.view(np.int32)),
         torch.from_numpy(pe.make_side(seg_units)),
         torch.from_numpy(ek.prog_scan_tables(frame, scan)),
@@ -261,16 +265,15 @@ def test_oversized_segment_raises(photo, monkeypatch):
 def test_flagged_lane_raises(photo, monkeypatch):
     data = oracle.jpeg_encode(photo, 88, "420", progressive=True,
                               restart_interval=6)
-    real = ek.decode_prog_scan
+    real = ek.decode_prog_scan_into
     from nvimagecodec_tpu_torch.codecs.jpeg import device_entropy as de
 
     def flag_one(*args):
-        out, err = real(*args)
-        err = err.clone()
+        err = real(*args).clone()
         err[1] = 1
-        return out, err
+        return err
 
-    monkeypatch.setattr(de, "decode_prog_scan", flag_one)
+    monkeypatch.setattr(de, "decode_prog_scan_into", flag_one)
     with pytest.raises(ValueError, match="kernel flagged error"):
         decode_progressive_device(parse_jpeg_structure(data), data, "cpu")
 
@@ -296,21 +299,25 @@ def test_scan_tables_layout(photo):
 def test_cpu_wrapper_uses_plain_version(photo):
     data = oracle.jpeg_encode_spectral(photo, 88, "420", split=5,
                                        restart_interval=6)
-    before = ek.decode_prog_scan.launches
+    before = ek.decode_prog_scan_into.launches
     _check_prog(data)
-    assert ek.decode_prog_scan.launches == before
+    assert ek.decode_prog_scan_into.launches == before
 
 
 def test_wrapper_refuses_other_devices():
-    w = torch.zeros((4, 128), dtype=torch.int32, device="meta")
-    s = torch.zeros((6, 128), dtype=torch.int32, device="meta")
-    t = torch.zeros((1, 35), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError):
-        ek.decode_prog_scan("dc", w, s, t, 1, 1, (0,), 0, 0, 0)
-    with pytest.raises(ValueError):
-        ek.decode_prog_scan("zz", w, s, t, 1, 1, (0,), 0, 0, 0)
-    with pytest.raises(ValueError):  # acref needs band_in
-        ek.decode_prog_scan("acref", torch.zeros((4, 128), dtype=torch.int32),
-                            torch.zeros((6, 128), dtype=torch.int32),
-                            torch.zeros((1, 35), dtype=torch.int32),
-                            1, 1, (0,), 1, 63, 0)
+    def args(device):
+        return (torch.zeros((4, 128), dtype=torch.int32, device=device),
+                torch.zeros((6, 128), dtype=torch.int32, device=device),
+                torch.zeros((1, 35), dtype=torch.int32, device=device),
+                torch.zeros((1, 512), dtype=torch.int16, device=device),
+                [torch.zeros((2, 2, 64), dtype=torch.int16, device=device)])
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        ek.decode_prog_scan_into("dc", *args("meta"), 1, [(1, 1)], 2, 0,
+                                 None, 0, 0, 0)
+    with pytest.raises(ValueError, match="unknown kind"):
+        ek.decode_prog_scan_into("zz", *args("meta"), 1, [(1, 1)], 2, 0,
+                                 None, 0, 0, 0)
+    with pytest.raises(ValueError, match="bad band"):  # an AC kind at ss = 0
+        ek.decode_prog_scan_into("acref", *args("cpu"), 1, [(1, 1)], 2, 0,
+                                 (2, 2), 0, 63, 0)
