@@ -4,8 +4,8 @@
 
 Builds the hand-written kernels (csrc/*.cu) with nvcc and the host library
 (native/*.cpp) with c++, both from the sources in this checkout, then drives
-the port's three device paths on the GPU and checks that each ran through
-its kernels (launch counts set to 0 just before the path, read just after):
+the port's device paths on the GPU and checks that each ran through its
+kernels (launch counts set to 0 just before the path, read just after):
 
 - main path: 256 baseline 4:2:0 JPEGs of 375x500 at q85 (the corpus
   bench.py times) through the public Decoder, idx route (K2, K1; K2 stores
@@ -14,7 +14,16 @@ its kernels (launch counts set to 0 just before the path, read just after):
 - dri path: the same photos with a restart marker every MCU row (committed
   in tests/torch_corpus), through the Decoder's dri route (K2, K1);
 - prog path: 8 progressive streams (libjpeg's default script, restart
-  interval 16; tests/torch_corpus) through `decode_progressive` (K3, K1).
+  interval 16; tests/torch_corpus) through `decode_progressive` (K3, K1);
+- encode path: the main path's 256 decoded images, as the CUDA tensors they
+  are, through `Encoder(device="cuda")`: the device route (one stacked
+  tensor, `encode_pixels` on the card, int16 coefficients back, Huffman on
+  the host), no image copied to the host whole, every stream decoded again
+  to PSNR >= 33 dB; and 8-image 4:4:4, 4:2:2, gray and 12-bit buckets;
+- transcode path: `pipeline.decode_batches` over 4 batches of 64 streams at
+  depth 2 (K2, K1), `resize` to 224x224 on the card, `Encoder.encode`;
+- cli: `python -m nvimagecodec_tpu_torch.cli` imtrans on 16 JPEGs and improc
+  --resize on one, as a user would run them.
 
 It checks the images and coefficients against the CPU and the native host
 decoder, holds each kernel against its plain PyTorch version on the card,
@@ -32,9 +41,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -50,6 +61,8 @@ FP32_FLOPS = 67e12
 K1_GOAL_MS = 0.30  # the three main-path launches together
 K2_GOAL_MS = 0.75  # one bucket of 256 images
 K3_GOAL_MS = 0.65  # the 10 scans of one stream
+PSNR_BAR_DB = 33.0  # a re-encoded image against the tensor it came from
+TRANSCODE_BATCHES, TRANSCODE_BATCH, TRANSCODE_HW = 4, 64, 224
 # torch.cuda._sleep counts the card's clock; at least this many a millisecond
 # (the H100's boost clock is 1.98 GHz), so a spin is never shorter than asked
 SPIN_CYCLES_PER_MS = 2.0e6
@@ -151,7 +164,7 @@ def main() -> int:
         quality=QUALITY, chroma_subsampling=nic.ChromaSubsampling.CSS_420,
         jpeg=nic.JpegEncodeParams(optimized_huffman=False))
     photos = [make_photo(H, W, seed=s) for s in range(SEEDS)]
-    uniq = nic.Encoder().encode(photos, "jpeg", params)
+    uniq = nic.Encoder(device="cpu").encode(photos, "jpeg", params)
     if any(d is None for d in uniq):
         raise RuntimeError("corpus encode failed")
     jpgs = [uniq[i % SEEDS] for i in range(BATCH)]
@@ -238,7 +251,16 @@ def main() -> int:
     # 9) the prog path: 8 progressive streams through decode_progressive
     prog_ips = prog_phase(prog, dev)
 
-    # 10) times (informational; no claim)
+    # 10) the encode path: the main path's CUDA tensors through the Encoder
+    encode_frame = encode_phase(imgs, dec, params, dev)
+
+    # 11) the transcode path: pipelined decode, resize on the card, encode
+    trans = transcode_phase(jpgs, imgs, dec, params)
+
+    # 12) the command line, as a user would run it
+    cli_phase(uniq, dec)
+
+    # 13) times (informational; no claim)
     k1_ms = sum(cuda_ms(lambda i, x=x, M=M: dequant_idct_blocks(x, M, 8, True),
                         20) for x, M in k1_in)
     k1_plain_ms = sum(
@@ -297,6 +319,8 @@ def main() -> int:
           f"images/s "
           f"(x{prog_ips['device'] / prog_ips['host']:.3f})")
 
+    encode_times(imgs, jpgs, dec, params, dev, card, encode_frame)
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.split(".")[0] == "nvimagecodec_tpu"]
     if loaded:
@@ -312,7 +336,8 @@ def main() -> int:
          "library_ms": k1_lib_ms,
          "launches_by_path": {"main": launches["K1"],
                               "dri": dri["launches"]["K1"],
-                              "prog": prog_ips["launches"]["K1"]}},
+                              "prog": prog_ips["launches"]["K1"],
+                              "transcode": trans["launches"]["K1"]}},
         {"name": "K2 decode_segments_into", "route": "cuda",
          "source": "nvimagecodec_tpu_torch/csrc/huffman.cu",
          "replaces": "nvimagecodec_tpu/ops/pallas_entropy.py:120",
@@ -321,7 +346,8 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": "bytes", "library_ms": None,
          "launches_by_path": {"main": launches["K2"],
-                              "dri": dri["launches"]["K2"]}},
+                              "dri": dri["launches"]["K2"],
+                              "transcode": trans["launches"]["K2"]}},
         {"name": "K3 decode_prog_scan_into", "route": "cuda",
          "source": "nvimagecodec_tpu_torch/csrc/prog_huffman.cu",
          "replaces": "nvimagecodec_tpu/ops/pallas_entropy.py:493",
@@ -765,6 +791,363 @@ def prog_phase(streams, dev):
 
     return {"launches": launches, "k1_err": k1_err,
             "device": rate(device_all), "host": rate(host_all)}
+
+
+def widen(t):
+    """A tensor's samples as int32 (few torch ops take uint16)."""
+    import torch
+
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return t.to(torch.int32)
+
+
+def psnr_db(a, b, peak: float = 255.0) -> float:
+    mse = float(((widen(a) - widen(b)).double() ** 2).mean())
+    return float("inf") if mse == 0 else 10 * math.log10(peak * peak / mse)
+
+
+@contextlib.contextmanager
+def count_host_copies(copies: list):
+    """Append to `copies` whenever the encode path copies a whole image to
+    the host (`batch_encode.host_array`, `Image.cpu`)."""
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
+    from nvimagecodec_tpu_torch.image import Image
+
+    real_array, real_cpu = be.host_array, Image.cpu
+
+    def host_array(img):
+        copies.append(type(img).__name__)
+        return real_array(img)
+
+    def cpu(self):
+        copies.append("Image.cpu")
+        return real_cpu(self)
+
+    be.host_array, Image.cpu = host_array, cpu
+    try:
+        yield
+    finally:
+        be.host_array, Image.cpu = real_array, real_cpu
+
+
+def encode_bucket(name, tensors, params, enc, dec, dev, peak=255.0):
+    """One same-shape bucket of CUDA tensors through `enc`: the device route
+    took every image and copied none to the host whole, every stream decodes
+    again (through `dec`) to PSNR >= PSNR_BAR_DB against the tensor it came
+    from, and for the first SEEDS images (the distinct photos) the card's
+    coefficients differ from `encode_pixels` on the CPU by at most 1 on
+    fewer than 1% of entries. Returns (streams, frame, text)."""
+    import torch
+
+    import nvimagecodec_tpu_torch as nic
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
+    from nvimagecodec_tpu_torch.codecs.jpeg.encode import encode_pixels
+
+    n = len(tensors)
+    copies = []
+    routes0 = dict(be.ROUTES)
+    with count_host_copies(copies):
+        streams = enc.encode(tensors, "jpeg", params)
+    routes = {k: be.ROUTES[k] - routes0[k] for k in routes0}
+    if routes != {"device": n, "host": 0, "progressive": 0}:
+        raise RuntimeError(f"encode path ({name}): routes {routes}")
+    if copies:
+        raise RuntimeError(f"encode path ({name}): {len(copies)} images "
+                           f"were copied to the host, e.g. {copies[:4]}")
+    if any(d is None for d in streams):
+        raise RuntimeError(f"encode path ({name}): a sample failed")
+    back = dec.decode(streams, nic.DecodeParams(allow_any_depth=peak > 255))
+    worst = math.inf
+    for j, (t, im) in enumerate(zip(tensors, back)):
+        if im is None or tuple(im.shape) != tuple(t.shape) \
+                or im.array.dtype != t.dtype:
+            raise RuntimeError(f"encode path ({name}): stream {j} decodes "
+                               f"to {im}")
+        worst = min(worst, psnr_db(im.array.to(dev), t, peak))
+    if worst < PSNR_BAR_DB:
+        raise RuntimeError(f"encode path ({name}): PSNR {worst:.2f} dB < "
+                           f"{PSNR_BAR_DB}")
+    deep = tensors[0].dtype == torch.uint16
+    bits = torch.int16 if deep else torch.uint8
+    x = torch.stack([t.view(bits) for t in tensors[:SEEDS]])
+    x = x.view(torch.uint16) if deep else x
+    frame = be.bucket_frame(tuple(tensors[0].shape), params,
+                             12 if deep else 8)
+    diff, share = 0, 0.0
+    for a, b in zip(encode_pixels(x, frame, dev),
+                    encode_pixels(x.cpu(), frame, "cpu")):
+        d = (a.cpu() - b).abs()
+        diff = max(diff, int(d.max()))
+        share = max(share, float((d > 0).double().mean()))
+    if diff > 1 or share >= 0.01:
+        raise RuntimeError(f"encode path ({name}): coefficients on the card "
+                           f"differ from the CPU's by {diff} on {share:.4%}")
+    return streams, frame, (
+        f"{name}: {n}/{n} via the device route, no host copy of an image, "
+        f"decode again to PSNR >= {worst:.2f} dB, card vs CPU coefficients "
+        f"max |diff| {diff} on {share:.4%} of entries")
+
+
+def encode_phase(imgs, dec, params, dev):
+    """The main path's decoded images, CUDA tensors, through
+    `Encoder(device="cuda")` with the GPU backend only: the full 4:2:0
+    bucket, then 8-image 4:4:4, 4:2:2, gray and 12-bit (uint16) buckets.
+    Returns the main bucket's frame."""
+    import torch
+
+    import nvimagecodec_tpu_torch as nic
+
+    enc = nic.Encoder(device="cuda",
+                      backends=[nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)])
+    tensors = [im.array for im in imgs]
+    streams, frame, text = encode_bucket(
+        f"{len(tensors)} x {H}x{W} 4:2:0 q{QUALITY}", tensors, params, enc,
+        dec, dev)
+    phase("encode_path", text + f"; {sum(map(len, streams)) // len(streams)}"
+          " B mean")
+
+    def with_css(css):
+        return nic.EncodeParams(
+            quality=QUALITY, chroma_subsampling=css,
+            jpeg=nic.JpegEncodeParams(optimized_huffman=False))
+
+    few = tensors[:SEEDS]
+    deep = [((widen(t) << 4) | (widen(t) >> 4)).to(torch.int16)
+            .view(torch.uint16) for t in few]
+    for name, bucket, p, peak in [
+            ("4:4:4", few, with_css(nic.ChromaSubsampling.CSS_444), 255.0),
+            ("4:2:2", few, with_css(nic.ChromaSubsampling.CSS_422), 255.0),
+            ("gray", [t[..., 0].contiguous() for t in few], with_css(None),
+             255.0),
+            ("12-bit 4:2:0 (uint16)", deep, params, 4095.0)]:
+        _s, _f, text = encode_bucket(f"{len(bucket)} x {name}", bucket, p,
+                                     enc, dec, dev, peak)
+        phase("encode_path", text)
+    return frame
+
+
+def transcode_batches(jpgs):
+    return [jpgs[b * TRANSCODE_BATCH:(b + 1) * TRANSCODE_BATCH]
+            for b in range(TRANSCODE_BATCHES)]
+
+
+def transcode_once(jpgs, dec, enc, params, keep=None):
+    """decode_batches at depth 2 → one stacked resize to 224x224 on the card
+    → Encoder.encode. Returns the streams; `keep` collects (decoded images,
+    resized batch) per batch."""
+    import torch
+
+    from nvimagecodec_tpu_torch.ops.resize import resize
+    from nvimagecodec_tpu_torch.pipeline import decode_batches
+
+    out = []
+    for batch in decode_batches(transcode_batches(jpgs), decoder=dec,
+                                drop_failed=False, depth=2):
+        if any(im is None for im in batch):
+            raise RuntimeError("transcode path: a decode failed")
+        small = resize(torch.stack([im.array for im in batch]),
+                       TRANSCODE_HW, TRANSCODE_HW, "bilinear")
+        out.extend(enc.encode(list(small), "jpeg", params))
+        if keep is not None:
+            keep.append((batch, small))
+    return out
+
+
+def transcode_phase(jpgs, imgs, dec, params):
+    """The transcode path on the card, K1 held against its plain version on
+    every launch: the pipelined decode equals the main path's unpipelined
+    decode exactly, the resize is within 1 of `ops/resize` on the CPU for
+    the distinct photos and all three filters, every stream decodes again to
+    224x224 at PSNR >= PSNR_BAR_DB, and K2 and K1 launched once and three
+    times a batch. Returns the phase's numbers."""
+    import torch
+
+    import nvimagecodec_tpu_torch as nic
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
+    from nvimagecodec_tpu_torch.ops.resize import resize
+
+    enc = nic.Encoder(device="cuda",
+                      backends=[nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)])
+    keep = []
+    routes0 = dict(be.ROUTES)
+    counts_zero()
+    with no_plain_versions():
+        streams, k1_err, _shapes = k1_held(
+            lambda: transcode_once(jpgs, dec, enc, params, keep))
+        torch.cuda.synchronize()
+    launches = counts()
+    n = TRANSCODE_BATCHES * TRANSCODE_BATCH
+    want = {"K1": 3 * TRANSCODE_BATCHES, "K2": TRANSCODE_BATCHES, "K3": 0}
+    if launches != want:
+        raise RuntimeError(f"transcode path: launches {launches}, expected "
+                           f"{want}")
+    if k1_err > 1:
+        raise RuntimeError(f"transcode path: K1 vs plain {k1_err} > 1")
+    if be.ROUTES["device"] - routes0["device"] != n:
+        raise RuntimeError("transcode path: the encode left the device route")
+    if len(streams) != n or any(d is None for d in streams):
+        raise RuntimeError("transcode path: an encode failed")
+    j = 0
+    worst = math.inf
+    for batch, small in keep:
+        back = dec.decode(streams[j:j + len(batch)])
+        for k, im in enumerate(batch):
+            if not torch.equal(im.array, imgs[j + k].array):
+                raise RuntimeError(f"transcode path: pipelined decode of "
+                                   f"stream {j + k} differs from the "
+                                   "unpipelined one")
+            if back[k] is None or back[k].shape != (TRANSCODE_HW,
+                                                    TRANSCODE_HW, 3):
+                raise RuntimeError(f"transcode path: stream {j + k} decodes "
+                                   f"to {back[k]}")
+            worst = min(worst, psnr_db(back[k].array, small[k]))
+        j += len(batch)
+    if worst < PSNR_BAR_DB:
+        raise RuntimeError(f"transcode path: PSNR {worst:.2f} dB < "
+                           f"{PSNR_BAR_DB}")
+    diffs = {}
+    for interp in ("bilinear", "bicubic", "lanczos"):
+        x = torch.stack([im.array for im in imgs[:SEEDS]])
+        d = (resize(x, TRANSCODE_HW, TRANSCODE_HW, interp).cpu().int()
+             - resize(x.cpu(), TRANSCODE_HW, TRANSCODE_HW, interp).int())
+        diffs[interp] = int(d.abs().max())
+        if diffs[interp] > 1:
+            raise RuntimeError(f"transcode path: {interp} resize on the card "
+                               f"differs from the CPU's by {diffs[interp]}")
+    phase("transcode_path", f"{TRANSCODE_BATCHES} batches of "
+          f"{TRANSCODE_BATCH} streams, depth 2: pipelined decode equals the "
+          f"unpipelined one exactly; launches {launches}; K1 vs plain max "
+          f"|diff| {k1_err}; resize to {TRANSCODE_HW}x{TRANSCODE_HW} on the "
+          f"card within {diffs} of the CPU's; {n}/{n} encoded via the device "
+          f"route, decode again to PSNR >= {worst:.2f} dB")
+    return {"launches": launches, "k1_err": k1_err}
+
+
+def cli_phase(uniq, dec):
+    """`imtrans` over a directory of 16 of the corpus's JPEGs to jpeg, and
+    `improc --resize 224x224` on one, each in a process of its own on the
+    card: exit code 0 and outputs that decode."""
+    def run(*argv):
+        r = subprocess.run(
+            [sys.executable, "-m", "nvimagecodec_tpu_torch.cli", *argv],
+            capture_output=True, text=True, cwd=ROOT, timeout=300)
+        if r.returncode != 0:
+            raise RuntimeError(f"cli {argv[0]}: exit code {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+        return r.stdout.strip()
+
+    with tempfile.TemporaryDirectory() as d:
+        src, out = os.path.join(d, "in"), os.path.join(d, "out")
+        os.makedirs(src)
+        for i in range(16):
+            with open(os.path.join(src, f"im{i:02d}.jpg"), "wb") as f:
+                f.write(uniq[i % SEEDS])
+        said = run("imtrans", "-i", src, "-c", "jpeg", "-q", str(QUALITY),
+                   "--chroma_subsampling", "420", "-o", out).splitlines()[-1]
+        names = sorted(os.listdir(out))
+        if names != [f"im{i:02d}.jpg" for i in range(16)]:
+            raise RuntimeError(f"cli imtrans wrote {names}")
+        datas = []
+        for name in names:
+            with open(os.path.join(out, name), "rb") as f:
+                datas.append(f.read())
+        back = dec.decode(datas)
+        if any(im is None or im.shape != (H, W, 3) for im in back):
+            raise RuntimeError("cli imtrans: an output does not decode")
+        small = os.path.join(d, "small.jpg")
+        run("improc", "-i", os.path.join(src, "im00.jpg"), "--resize",
+            f"{TRANSCODE_HW}x{TRANSCODE_HW}", "-c", "jpeg", "-o", small)
+        with open(small, "rb") as f:
+            im = dec.decode(f.read())
+        if im is None or im.shape != (TRANSCODE_HW, TRANSCODE_HW, 3):
+            raise RuntimeError(f"cli improc: the output decodes to {im}")
+    phase("cli", f"imtrans on 16 JPEGs to jpeg: exit code 0, \"{said}\", all "
+          f"16 outputs decode to [{H},{W},3]; improc --resize "
+          f"{TRANSCODE_HW}x{TRANSCODE_HW}: exit code 0, decodes to "
+          f"{list(im.shape)}")
+
+
+def encode_times(imgs, jpgs, dec, params, dev, card, frame):
+    """Informational: encode images/s of the device route and of the host
+    route on the same 256 images, alternated, with the images on the card
+    and on the host; the device stage's CUDA-event time and the time of its
+    coefficient copy; the transcode path's images/s."""
+    import torch
+
+    import nvimagecodec_tpu_torch as nic
+    from nvimagecodec_tpu_torch.codecs.jpeg.encode import encode_pixels
+
+    hybrid = [nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)]
+    encs = {"device": nic.Encoder(device="cuda", backends=hybrid),
+            "host": nic.Encoder(
+                device="cuda", backends=hybrid,
+                options="cuda_jpeg_hybrid_encoder:device_stage=false")}
+    on_card = [im.array for im in imgs]
+    on_host = [t.cpu().numpy() for t in on_card]
+
+    def rate(enc, images, reps=2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if any(d is None for d in enc.encode(images, "jpeg", params)):
+                raise RuntimeError("times: an encode failed")
+        return reps * len(images) / (time.perf_counter() - t0)
+
+    for enc in encs.values():  # warm-up: pinned buffers, matrices, pools
+        rate(enc, on_card, 1)
+        rate(enc, on_host, 1)
+    ips = {}
+    for where, images in (("card", on_card), ("host", on_host)):
+        for route in ("device", "host", "host", "device"):
+            ips.setdefault((where, route), []).append(
+                rate(encs[route], images))
+
+    x = torch.stack(on_card)
+
+    def stage(i):
+        return [c.to(torch.int16) for c in encode_pixels(x, frame, dev)]
+
+    stage_ms = cuda_ms(stage, 5)
+    coefs = stage(0)
+    hosts = [torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
+             for c in coefs]
+
+    def fetch(i):
+        for h, c in zip(hosts, coefs):
+            h.copy_(c, non_blocking=True)
+
+    d2h_ms = cuda_ms(fetch, 5)
+    d2h_bytes = sum(h.nbytes for h in hosts)
+    stack_ms = cuda_ms(lambda i: torch.stack(on_card), 5)
+
+    enc = encs["device"]
+    transcode_once(jpgs, dec, enc, params)
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        transcode_once(jpgs, dec, enc, params)
+    torch.cuda.synchronize()
+    trans_ips = (reps * TRANSCODE_BATCHES * TRANSCODE_BATCH
+                 / (time.perf_counter() - t0))
+
+    def both(where, route):
+        return " / ".join(f"{v:.1f}" for v in ips[(where, route)])
+
+    phase("times", f"on {card}: Encoder.encode of {len(imgs)} images "
+          f"{H}x{W} 4:2:0 q{QUALITY}, images/s, two readings each, routes "
+          f"alternated: images on the card, device route "
+          f"{both('card', 'device')}, host route {both('card', 'host')}; "
+          f"images on the host, device route {both('host', 'device')}, host "
+          f"route {both('host', 'host')}")
+    phase("times", f"on {card}: encode device stage (encode_pixels + int16) "
+          f"{stage_ms:.4f} ms for {len(imgs)} images (CUDA events); stacking "
+          f"the {len(imgs)} tensors {stack_ms:.4f} ms; copy of {d2h_bytes} B "
+          f"of coefficients to pinned host memory {d2h_ms:.4f} ms "
+          f"({d2h_bytes / d2h_ms / 1e6:.2f} GB/s); transcode path "
+          f"(decode_batches depth 2, resize {TRANSCODE_HW}x{TRANSCODE_HW}, "
+          f"encode) {trans_ips:.1f} images/s")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """nvimagecodec_tpu_torch: the PyTorch + CUDA port of nvimagecodec_tpu.
 
-The same Decoder/Encoder/Image/CodeStream surface as the JAX package, with
-hand-written Hopper kernels on the device path: K1 (dequant + IDCT,
+The same Decoder/Encoder/Image/CodeStream surface as the JAX package, plus
+its input pipeline (`pipeline.decode_batches`), resize ops (`ops/resize.py`)
+and `imtrans`/`improc` command line (`python -m nvimagecodec_tpu_torch.cli`),
+with hand-written Hopper kernels on the device path: K1 (dequant + IDCT,
 csrc/idct.cu), K2 (baseline Huffman decode, csrc/huffman.cu) and K3
 (progressive Huffman decode, csrc/prog_huffman.cu). The host layer (parsers,
 core, native entropy and index scan, host codec plugins) is the port's own
@@ -39,7 +41,7 @@ from .core.logger import (  # noqa: F401
     unregister_debug_messenger,
 )
 from .core.thread_pool import PriorityThreadPool  # noqa: F401
-from .core.registry import CodecRegistry  # noqa: F401
+from .core.registry import CodecRegistry, global_registry  # noqa: F401
 from .codecs.webp_anim import (  # noqa: F401
     decode_webp_animation,
     encode_webp_animation,
@@ -85,5 +87,6 @@ __all__ = [
     "as_image",
     "as_images",
     "from_dlpack",
+    "global_registry",
     "port_registry",
 ]

@@ -5,7 +5,9 @@ that device ("cuda" unless told otherwise; the CPU only when asked for, never
 by detection); other formats decode on the host through the host plugins
 and come back as CPU tensors. Failed samples come back as None. EXIF
 orientation, ROI crop, GRAY and sample-format/type conversion follow the
-reference (api.py:97-151). `Encoder` goes through the host encoders.
+reference (api.py:97-151). `Encoder(device=...)` encodes JPEG with the pixel
+stage on that device and takes images that live there as they are; other
+formats encode on the host.
 """
 from __future__ import annotations
 
@@ -16,7 +18,11 @@ import numpy as np
 import torch
 
 from .codecs import port_registry
-from .codecs.jpeg import JpegHybridCudaDecoder
+from .codecs.jpeg import (
+    JpegCpuEncoder,
+    JpegHybridCudaDecoder,
+    JpegHybridCudaEncoder,
+)
 from .core.code_stream import CodeStream
 from .core.interfaces import DecodeParams, EncodeParams
 from .core.registry import CodecRegistry
@@ -117,11 +123,20 @@ class Decoder:
 
 
 class Encoder:
-    """Batched image encoder through the host encoders."""
+    """Batched image encoder (reference: python/encoder.cpp). JPEG goes
+    through the CUDA encoder on `device`: an image that lives there is
+    handed over as a tensor and never copied to the host whole; only its
+    quantised coefficients are. Other codecs get numpy arrays."""
 
-    def __init__(self, backends: Optional[Sequence[Backend]] = None,
+    def __init__(self, device="cuda",
+                 backends: Optional[Sequence[Backend]] = None,
                  options: str = "", max_num_cpu_threads: int = 0,
                  registry: Optional[CodecRegistry] = None, executor=None):
+        self.device = torch.device(device)
+        # as for the Decoder: the device wins over one named in `options`
+        options = (f"{options} {JpegHybridCudaEncoder.plugin_id}:"
+                   f"device={self.device} {JpegCpuEncoder.plugin_id}:"
+                   f"device={self.device}")
         self._generic = GenericEncoder(
             registry=registry or port_registry(), backends=backends,
             options=options, max_num_cpu_threads=max_num_cpu_threads,
@@ -136,7 +151,10 @@ class Encoder:
         arrays, infos = [], []
         for im in imgs:
             im = as_image(im)
-            arrays.append(np.asarray(im.cpu()))
+            # the JPEG plugins take tensors wherever they live; the host
+            # codecs need numpy
+            arrays.append(im.array if codec == "jpeg"
+                          else np.asarray(im.cpu()))
             infos.append(im.info)
         results = self._generic.encode_batch(arrays, infos, codec, params)
         data = [r.data if (r.status & ProcessingStatus.SUCCESS) else None

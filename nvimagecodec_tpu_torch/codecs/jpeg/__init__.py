@@ -11,15 +11,16 @@ encoder, priority ladder at nvjpeg_ext.cpp:42-47). The ladder:
   fallback) + the port's pixel stage on CPU tensors, where K1 takes its plain
   version; true ROI decode. Within 1 of the JAX package's numpy decoder,
   exact with `bitexact`;
-- the lossless decoder (codecs/jpeg/lossless.py) and `cpu_jpeg_encoder`
-  (host pixel stage + native Huffman, codecs/jpeg/encode.py). The device
-  encode stage is not ported yet.
+- the lossless decoder (codecs/jpeg/lossless.py);
+- `cuda_jpeg_hybrid_encoder` (HYBRID_CPU_GPU, HIGH): the bucketed pixel
+  stage on the device, Huffman on the host (codecs/jpeg/batch_encode.py);
+- `cpu_jpeg_encoder` (CPU_ONLY, NORMAL): per-sample pixel stage + native
+  Huffman (codecs/jpeg/encode.py).
 """
 from __future__ import annotations
 
 from typing import List
 
-import numpy as np
 import torch
 
 from ...core.interfaces import (
@@ -210,37 +211,85 @@ class JpegCpuDecoder(_JpegDecoderBase):
         self.bitexact = get_bool(opts, "bitexact", False)
 
 
+def _can_encode(image_batch) -> List[ProcessingStatus]:
+    """uint8/uint16 images of 1 or 3 channels, judged from shape and dtype
+    alone (a device tensor stays where it is)."""
+    from .batch_encode import shape_dtype
+
+    out = []
+    for img in image_batch:
+        shape, dt = shape_dtype(img)
+        ok = dt in ("uint8", "uint16") and (
+            len(shape) == 2 or shape[-1] in (1, 3))
+        out.append(
+            ProcessingStatus.SUCCESS
+            if ok
+            else ProcessingStatus.FAIL | ProcessingStatus.SAMPLE_TYPE_UNSUPPORTED
+        )
+    return out
+
+
+class JpegHybridCudaEncoder(EncoderPlugin):
+    """Batched encoder: bucketed fDCT/quant on `device` (a CUDA device, or
+    the CPU) + native host Huffman (the modelled library's HYBRID_CPU_GPU
+    nvjpeg encoder slot, extensions/nvjpeg/cuda_encoder.cpp:284-436). First
+    in the chain. A sample it rejects, or one whose host stage fails, goes
+    on to cpu_jpeg_encoder; an error of its device stage raises. Options:
+    device, device_stage (false keeps the whole encode on the host)."""
+
+    codec = "jpeg"
+    plugin_id = "cuda_jpeg_hybrid_encoder"
+    backend_kind = BackendKind.HYBRID_CPU_GPU
+    priority = Priority.HIGH
+    device = torch.device("cuda")
+    device_stage = True
+
+    def set_options(self, opts) -> None:
+        self.device = torch.device(opts.get("device", "cuda"))
+        self.device_stage = get_bool(opts, "device_stage", True)
+
+    def can_encode(self, image_batch, info_batch, params) -> List[ProcessingStatus]:
+        return _can_encode(image_batch)
+
+    def encode_batch(self, image_batch, info_batch, params) -> List[EncodeResult]:
+        from .batch_encode import encode_batch_cuda
+
+        return encode_batch_cuda(image_batch, params, self.device,
+                                 device_stage=self.device_stage)
+
+
 class JpegCpuEncoder(EncoderPlugin):
+    """Per-sample encoder. Options: device_pixel_stage (true runs
+    `encode_pixels` on `device` instead of on the CPU), device."""
+
     codec = "jpeg"
     plugin_id = "cpu_jpeg_encoder"
     backend_kind = BackendKind.CPU_ONLY
     priority = Priority.NORMAL
+    device_pixel_stage = False
+    device = torch.device("cuda")
+
+    def set_options(self, opts) -> None:
+        self.device_pixel_stage = get_bool(opts, "device_pixel_stage", False)
+        self.device = torch.device(opts.get("device", "cuda"))
 
     def can_encode(self, image_batch, info_batch, params) -> List[ProcessingStatus]:
-        out = []
-        for img in image_batch:
-            a = np.asarray(img)
-            ok = a.dtype in (np.uint8, np.uint16) and (
-                a.ndim == 2 or a.shape[-1] in (1, 3)
-            )
-            out.append(
-                ProcessingStatus.SUCCESS
-                if ok
-                else ProcessingStatus.FAIL | ProcessingStatus.SAMPLE_TYPE_UNSUPPORTED
-            )
-        return out
+        return _can_encode(image_batch)
 
     def encode_batch(self, image_batch, info_batch, params) -> List[EncodeResult]:
-        # fan samples over a thread pool (numpy pixel stage + GIL-releasing
+        # fan samples over a thread pool (torch pixel stage + GIL-releasing
         # native entropy encode — the executor fan-out analog,
         # extensions/nvjpeg/cuda_encoder.cpp per-sample tasks)
         import os
         from concurrent.futures import ThreadPoolExecutor
 
+        from .batch_encode import host_array
         from .encode import encode_jpeg
 
+        device = self.device if self.device_pixel_stage else None
+
         def one(img):
-            return encode_jpeg(np.asarray(img), params)
+            return encode_jpeg(host_array(img), params, device=device)
 
         if len(image_batch) > 1:
             with ThreadPoolExecutor(
@@ -270,4 +319,5 @@ def register(registry) -> None:
     codec.register_decoder(JpegHybridCudaDecoder())
     codec.register_decoder(JpegCpuDecoder())
     codec.register_decoder(JpegLosslessDecoder())
+    codec.register_encoder(JpegHybridCudaEncoder())
     codec.register_encoder(JpegCpuEncoder())

@@ -162,17 +162,27 @@ def count_symbols_native(frame: JpegFrame, coefs: Sequence[np.ndarray]):
     )
 
 
+def scan_setup(frame: JpegFrame, dc_tables: Dict[int, HuffTable],
+               ac_tables: Dict[int, HuffTable]):
+    """Precompute the ctypes arguments of entropy_encode_native that depend
+    on the frame and the tables alone (cacheable per bucket of same-geometry
+    samples encoded with the same tables)."""
+    return _geometry(frame), _table_blob(dc_tables, ac_tables)
+
+
 def entropy_encode_native(
     frame: JpegFrame,
     coefs: Sequence[np.ndarray],
     dc_tables: Dict[int, HuffTable],
     ac_tables: Dict[int, HuffTable],
     restart_interval: int = 0,
+    setup=None,
 ) -> bytes:
+    """`setup` may carry `scan_setup(frame, dc_tables, ac_tables)`."""
     L = lib()
-    ncomp, mx, my, h, v, bw, bh, dct, act = _geometry(frame)
+    geometry, blob = setup or scan_setup(frame, dc_tables, ac_tables)
+    ncomp, mx, my, h, v, bw, bh, dct, act = geometry
     arrs, ptrs = _coef_ptrs(coefs)
-    blob = _table_blob(dc_tables, ac_tables)
     out = ctypes.POINTER(ctypes.c_uint8)()
     out_len = ctypes.c_size_t()
     rc = L.tic_jpeg_encode_scan(

@@ -16,7 +16,10 @@ Differences by design:
   the batch's promise and no CPU rung re-decodes its samples, so it reaches
   the caller from every entry point: the synchronous decode,
   `decode_batch_async` and a user executor alike. A per-sample FAIL result
-  still walks the ladder.
+  still walks the ladder. The encoder side has the same rule: an exception
+  out of a GPU encoder's `encode_batch` is recorded and no CPU encoder
+  answers for it, while a sample that the GPU encoder rejects in
+  `can_encode`, or fails alone, still goes down the chain.
 """
 from __future__ import annotations
 
@@ -360,6 +363,12 @@ class GenericEncoder(GenericBatchProcessor):
     def _run_chain(self, chain: List[EncoderPlugin], group, params, promise) -> None:
         if not group:
             return
+        if promise.error is not None:
+            # a GPU plugin raised: its samples get no CPU re-encode
+            for idx, _a, _i in group:
+                promise.set(idx, EncodeResult(ProcessingStatus.FAIL,
+                                              error=str(promise.error)))
+            return
         if not chain:
             for idx, _a, _i in group:
                 promise.set(
@@ -391,6 +400,8 @@ class GenericEncoder(GenericBatchProcessor):
                     )
             except Exception as e:
                 log.warning("encode_batch of %s raised: %s", encoder.plugin_id, e)
+                if encoder.backend_kind != BackendKind.CPU_ONLY:
+                    promise.fail(e)
                 results = [EncodeResult(ProcessingStatus.FAIL, error=str(e))] * len(accepted)
             failed = []
             for e, r in zip(accepted, results):

@@ -1,6 +1,8 @@
 """Card tests of the CUDA port: the hand-written kernels against their plain
-PyTorch versions, and the Decoder (idx and dri routes) and the progressive
-route on the GPU against the same on the CPU.
+PyTorch versions, the Decoder (idx and dri routes) and the progressive
+route on the GPU against the same on the CPU, and the encode device stage,
+the Encoder, resize, the input pipeline and the command line on the GPU
+against the same on the CPU.
 They need a CUDA device and skip without one. On the GPU machine:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
@@ -362,3 +364,192 @@ def test_decoder_gpu_dri_route_equals_host_route(cuda):
     cpu = port.Decoder(device="cpu").decode(datas[:4])
     for g, c in zip(dri, cpu):
         assert int((g.array.cpu().int() - c.array.int()).abs().max()) <= 1
+
+
+# ------------------------------------------- encode, resize, pipeline, CLI
+
+def _photos_on(cuda, n=20, h=120, w=168):
+    photos = [make_photo(h, w, seed=s) for s in range(n)]
+    return photos, [torch.from_numpy(p).to(cuda) for p in photos]
+
+
+@pytest.mark.parametrize("css", ["444", "422", "420", "440", "411", "gray",
+                                 "uint16"])
+def test_encode_pixels_gpu_vs_cpu(cuda, css):
+    """The card's coefficients against the CPU's: at most 1 on fewer than
+    1% of entries (the reference's bar between its backends)."""
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
+    from nvimagecodec_tpu_torch.codecs.jpeg.encode import encode_pixels
+
+    imgs = np.stack([make_photo(121, 203, seed=s) for s in range(4)])
+    if css == "gray":
+        imgs = imgs[..., 0].copy()
+    if css == "uint16":
+        imgs = (imgs.astype(np.uint16) << 4) | (imgs >> 4)
+    params = port.EncodeParams(
+        quality=85,
+        chroma_subsampling=css if css not in ("gray", "uint16") else "420")
+    frame = be.bucket_frame(imgs.shape[1:], params,
+                            12 if css == "uint16" else 8)
+    want = encode_pixels(imgs, frame, "cpu")
+    for src in (imgs, torch.from_numpy(imgs).to(cuda)):
+        got = encode_pixels(src, frame, cuda)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.dtype == torch.int32
+            d = (g.cpu() - w).abs()
+            assert int(d.max()) <= 1 and float((d > 0).double().mean()) < 0.01
+
+
+def test_encoder_gpu_takes_cuda_tensors_without_host_copy(cuda, monkeypatch):
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
+
+    photos, tensors = _photos_on(cuda)
+    copies = []
+    real = be.host_array
+    monkeypatch.setattr(be, "host_array",
+                        lambda img: (copies.append(1), real(img))[1])
+    params = port.EncodeParams(quality=85, chroma_subsampling="420")
+    before = dict(be.ROUTES)
+    enc = port.Encoder(device="cuda")
+    streams = enc.encode(tensors, "jpeg", params)
+    assert be.ROUTES["device"] - before["device"] == len(tensors)
+    assert copies == []
+    monkeypatch.undo()
+    back = port.Decoder(device="cuda").decode(streams)
+    host = port.Encoder(device="cpu").encode(photos, "jpeg", params)
+    want = port.Decoder(device="cpu").decode(host)
+    for t, b, w in zip(tensors, back, want):
+        assert b.device.type == "cuda"
+        mse = float(((b.array.float() - t.float()) ** 2).mean())
+        assert 10 * np.log10(255 ** 2 / mse) > 33
+        # the card's stream against the CPU's: quantizer boundary effects
+        assert int((b.array.cpu().int() - w.array.int()).abs().max()) <= 2
+    # host images, a mixed bucket and a single image take the same route
+    mixed = enc.encode([photos[0], tensors[1], tensors[2].cpu()], "jpeg",
+                       params)
+    assert all(d is not None for d in mixed)
+    # the library's product may round a boundary case otherwise at another
+    # batch size: the same pixels within 2, not the same bytes
+    one = port.Decoder(device="cuda").decode(
+        enc.encode(tensors[0], "jpeg", params))
+    assert int((one.array.int() - back[0].array.int()).abs().max()) <= 2
+
+
+def test_encoder_gpu_uint16_gray_and_rejected_samples(cuda):
+    photos, tensors = _photos_on(cuda, n=3, h=64, w=80)
+    deep = ((tensors[0].int() << 4) | (tensors[0].int() >> 4)).to(
+        torch.int16).view(torch.uint16)
+    batch = [deep, tensors[1][..., 0].contiguous(),
+             tensors[2].float(), tensors[2]]
+    out = port.Encoder(device="cuda").encode(
+        batch, "jpeg", port.EncodeParams(quality=90,
+                                         chroma_subsampling="420"))
+    assert [d is None for d in out] == [False, False, True, False]
+    dec = port.Decoder(device="cuda")
+    back = dec.decode(out[0], port.DecodeParams(allow_any_depth=True))
+    assert back.dtype == np.uint16 and back.shape == (64, 80, 3)
+    assert dec.decode(out[1]).shape == (64, 80)
+
+
+def test_encoder_gpu_host_route_gives_the_cpu_bytes(cuda):
+    photos, tensors = _photos_on(cuda, n=4)
+    params = port.EncodeParams(quality=88, chroma_subsampling="420")
+    opt = "cuda_jpeg_hybrid_encoder:device_stage=false"
+    got = port.Encoder(device="cuda", options=opt).encode(tensors, "jpeg",
+                                                         params)
+    want = port.Encoder(device="cpu", options=opt).encode(photos, "jpeg",
+                                                          params)
+    assert got == want
+
+
+def test_encoder_gpu_refuses_tf32(cuda):
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
+
+    _, tensors = _photos_on(cuda, n=1, h=16, w=16)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            be.encode_batch_cuda(tensors, None, cuda)
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            port.Encoder(device="cuda").encode(tensors, "jpeg")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic", "lanczos"])
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
+def test_resize_gpu_vs_cpu(cuda, interp, dtype):
+    """Within 1 of the CPU (which equals the reference's numpy path) for
+    integer images; 1e-3 of the range for float32."""
+    from nvimagecodec_tpu_torch.ops import resize as R
+
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, 256 if dtype == "uint8" else 65536,
+                     (3, 61, 77, 3)).astype(
+                         np.float32 if dtype == "float32" else dtype)
+    t = torch.from_numpy(a)
+    for oh, ow in [(24, 80), (128, 31)]:
+        want = R.resize(t, oh, ow, interp)
+        got = R.resize(t.to(cuda), oh, ow, interp)
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        g = got.cpu()
+        if dtype == "uint16":
+            g, want = g.view(torch.int16).int() & 0xFFFF, \
+                want.view(torch.int16).int() & 0xFFFF
+        d = float((g.double() - want.double()).abs().max())
+        assert d <= (65536 * 1e-3 if dtype == "float32" else 1)
+    for k in range(4):
+        assert torch.equal(R.rotate90(t.to(cuda), k).cpu(), R.rotate90(t, k))
+    assert torch.equal(R.flip(t.to(cuda), True, True).cpu(),
+                       R.flip(t, True, True))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_pipeline_gpu_equals_unpipelined(cuda, jpgs, depth):
+    from nvimagecodec_tpu_torch.pipeline import decode_batches
+
+    dec = port.Decoder(device="cuda")
+    batches = [jpgs, jpgs[:16], jpgs[2:], jpgs[:3]]
+    want = [dec.decode(b) for b in batches]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    got = []
+    for batch in decode_batches(batches, decoder=dec, depth=depth):
+        # a consumer on another stream reads without further synchronisation
+        with torch.cuda.stream(side):
+            got.append([im.array.clone() for im in batch])
+    torch.cuda.synchronize()
+    for g_batch, w_batch in zip(got, want):
+        assert len(g_batch) == len(w_batch)
+        for g, w in zip(g_batch, w_batch):
+            assert torch.equal(g, w.array)
+
+
+def test_cli_gpu(cuda, jpgs, tmp_path):
+    import subprocess
+    import sys
+
+    src = tmp_path / "in"
+    src.mkdir()
+    for i, d in enumerate(jpgs[:4]):
+        (src / f"p{i}.jpg").write_bytes(d)
+    root = __file__.rsplit("/tests/", 1)[0]
+
+    def run(*argv):
+        r = subprocess.run([sys.executable, "-m",
+                            "nvimagecodec_tpu_torch.cli", *argv],
+                           capture_output=True, text=True, cwd=root,
+                           timeout=600)
+        assert r.returncode == 0, r.stderr[-2000:]
+        return r.stdout
+
+    assert "processed 4/4" in run("imtrans", "-i", str(src), "-c", "jpeg",
+                                  "-o", str(tmp_path / "out"))
+    run("improc", "-i", str(src / "p0.jpg"), "--resize", "64x48", "--crop",
+        "8,8,100,90", "-c", "png", "-o", str(tmp_path / "r.png"))
+    dec = port.Decoder(device="cuda")
+    for i in range(4):
+        assert dec.read(str(tmp_path / "out" / f"p{i}.jpg")).shape == \
+            (120, 168, 3)
+    assert dec.read(str(tmp_path / "r.png")).shape == (48, 64, 3)
+    assert "cuda:0" in run("imtrans", "-i", "x", "--list-devices")

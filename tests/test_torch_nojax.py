@@ -19,7 +19,7 @@ from util import make_photo
 imgs = [make_photo(64, 80, seed=s) for s in range(16)]
 params = port.EncodeParams(quality=85,
                            chroma_subsampling=port.ChromaSubsampling.CSS_420)
-jpgs = port.Encoder().encode(imgs, "jpeg", params)
+jpgs = port.Encoder(device="cpu").encode(imgs, "jpeg", params)
 out = port.Decoder(device="cpu").decode(jpgs)
 assert jb.ROUTES["idx"] == 16, jb.ROUTES
 for im, src in zip(out, imgs):

@@ -16,8 +16,9 @@ FILES = sorted(
     os.path.relpath(p, ROOT) for p in
     glob.glob(os.path.join(ROOT, "nvimagecodec_tpu_torch", "**", "*.py"),
               recursive=True)
-) + ["chip_smoke.py", "tools/profile_torch_decode.py", "tools/bench_idct.py",
-     "tools/fp32_peak.py"]
+) + ["chip_smoke.py", "tools/profile_torch_decode.py",
+     "tools/profile_torch_encode.py", "tools/bench_idct.py",
+     "tools/bench_entropy.py", "tools/fp32_peak.py"]
 
 
 def _imported_roots(tree: ast.AST):
@@ -64,21 +65,28 @@ def test_port_has_its_own_host_layer():
                                            rel)), rel
 
 
-_PRELUDE = r"""
+_BLOCKER = r"""
 import importlib.abc
 import sys
+
+BLOCKED = {blocked!r}
 
 
 class _Block(importlib.abc.MetaPathFinder):
     # any import of the JAX package or of jax raises
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in {blocked!r}:
+        if name.split(".")[0] in BLOCKED:
             raise ImportError("blocked import of " + name)
         return None
 
 
 sys.meta_path.insert(0, _Block())
 sys.path[:0] = [{root!r}, {tests!r}]
+"""
+
+# the scripts get the blocker's source too, for the processes they start
+_PRELUDE = r"""{blocker}
+PRELUDE_BLOCK = {blocker!r}
 import numpy as np
 import torch
 import oracle
@@ -110,7 +118,7 @@ _SCRIPTS = {
     "jpeg_routes": r"""
 params = port.EncodeParams(quality=85,
                            chroma_subsampling=port.ChromaSubsampling.CSS_420)
-jpgs = port.Encoder().encode(imgs, "jpeg", params)
+jpgs = port.Encoder(device="cpu").encode(imgs, "jpeg", params)
 dec = port.Decoder(device="cpu")
 before = dict(jb.ROUTES)
 for im, src in zip(dec.decode(jpgs), imgs):
@@ -153,7 +161,7 @@ assert port.CodeStream(webp).codec_name == "webp"
 close(dec.decode(webp), imgs[1])
 """,
     "encode": r"""
-enc, dec = port.Encoder(), port.Decoder(device="cpu")
+enc, dec = port.Encoder(device="cpu"), port.Decoder(device="cpu")
 for css in (port.ChromaSubsampling.CSS_444, port.ChromaSubsampling.CSS_420):
     params = port.EncodeParams(quality=90, chroma_subsampling=css)
     data = enc.encode(imgs[2], "jpeg", params)
@@ -163,6 +171,47 @@ for css in (port.ChromaSubsampling.CSS_444, port.ChromaSubsampling.CSS_420):
 png = enc.encode(imgs[2], "png")
 assert np.array_equal(np.asarray(dec.decode(png)), imgs[2])
 assert np.array_equal(oracle.png_decode(png), imgs[2])
+""",
+    "transcode": r"""
+import os
+import subprocess
+import tempfile
+from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
+from nvimagecodec_tpu_torch.ops.resize import resize
+from nvimagecodec_tpu_torch.pipeline import decode_batches
+params = port.EncodeParams(quality=85,
+                           chroma_subsampling=port.ChromaSubsampling.CSS_420)
+enc, dec = port.Encoder(device="cpu"), port.Decoder(device="cpu")
+jpgs = enc.encode(imgs, "jpeg", params)
+before = dict(be.ROUTES)
+n = 0
+for batch in decode_batches([jpgs[:8], jpgs[8:]], decoder=dec, depth=2):
+    small = [resize(im.array, 32, 40, "bilinear") for im in batch]
+    for data, t in zip(enc.encode(small, "jpeg", params), small):
+        close(oracle.jpeg_decode(data), t.numpy(), 6.0)
+        n += 1
+assert n == 16 and be.ROUTES["device"] - before["device"] == 16
+with tempfile.TemporaryDirectory() as d:
+    src = os.path.join(d, "a.jpg")
+    with open(src, "wb") as f:
+        f.write(jpgs[0])
+    # the child inherits no import hook: it gets the blocking prelude too
+    child = PRELUDE_BLOCK + (
+        "from nvimagecodec_tpu_torch.cli import main\n"
+        "import sys\n"
+        "rc = main(sys.argv[1:])\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        "raise SystemExit(rc)\n")
+    for argv in (["imtrans", "-i", src, "-c", "png", "-o",
+                  os.path.join(d, "a.png")],
+                 ["improc", "-i", src, "--resize", "40x32", "-c", "jpeg",
+                  "-o", os.path.join(d, "r.jpg")]):
+        r = subprocess.run([sys.executable, "-c", child, *argv, "--device",
+                            "cpu"], capture_output=True, text=True)
+        assert r.returncode == 0, r.stderr[-2000:]
+    close(dec.decode(open(os.path.join(d, "a.png"), "rb").read()), imgs[0])
+    assert dec.decode(open(os.path.join(d, "r.jpg"), "rb").read()).shape \
+        == (32, 40, 3)
 """,
 }
 
@@ -178,6 +227,7 @@ print("ALONE-OK")
 def test_port_runs_with_the_jax_package_blocked(what):
     fmt = dict(blocked=set(BLOCKED), root=ROOT,
                tests=os.path.join(ROOT, "tests"))
+    fmt["blocker"] = _BLOCKER.format(**fmt)
     code = (_PRELUDE.format(**fmt) + _SCRIPTS[what]
             + _EPILOGUE.format(**fmt))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -130,7 +130,7 @@ def main() -> int:
     params = nic.EncodeParams(
         quality=QUALITY, chroma_subsampling=nic.ChromaSubsampling.CSS_420,
         jpeg=nic.JpegEncodeParams(optimized_huffman=False))
-    uniq = nic.Encoder().encode(
+    uniq = nic.Encoder(device="cpu").encode(
         [make_photo(H, W, seed=s) for s in range(SEEDS)], "jpeg", params)
     buckets = {"idx": [uniq[i % SEEDS] for i in range(args.images)],
                "dri": [torch_corpus.dri_streams()[i % SEEDS]

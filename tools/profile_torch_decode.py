@@ -60,7 +60,7 @@ def main() -> int:
         quality=85, chroma_subsampling=nic.ChromaSubsampling.CSS_420,
         jpeg=nic.JpegEncodeParams(optimized_huffman=False))
     photos = [make_photo(375, 500, seed=s) for s in range(8)]
-    uniq = nic.Encoder().encode(photos, "jpeg", params)
+    uniq = nic.Encoder(device="cpu").encode(photos, "jpeg", params)
     jpgs = [uniq[i % 8] for i in range(args.batch)]
     dri_uniq = torch_corpus.dri_streams()
     dri_jpgs = [dri_uniq[i % 8] for i in range(args.batch)]
