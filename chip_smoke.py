@@ -330,7 +330,8 @@ def main() -> int:
          "source": "nvimagecodec_tpu_torch/csrc/idct.cu",
          "replaces": "nvimagecodec_tpu/ops/pallas_kernels.py:23",
          "launches": launches["K1"],
-         "max_abs_err": max(k1_err, dri["k1_err"], prog_ips["k1_err"]),
+         "max_abs_err": max(k1_err, dri["k1_err"], prog_ips["k1_err"],
+                            trans["k1_err"]),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
          "bound_by": "bytes" if k1_bytes_ms >= k1_ops_ms else "operations",
          "library_ms": k1_lib_ms,
@@ -341,8 +342,8 @@ def main() -> int:
         {"name": "K2 decode_segments_into", "route": "cuda",
          "source": "nvimagecodec_tpu_torch/csrc/huffman.cu",
          "replaces": "nvimagecodec_tpu/ops/pallas_entropy.py:120",
-         "launches": launches["K2"], "max_abs_err": max(k2_err,
-                                                         dri["k2_err"]),
+         "launches": launches["K2"], "max_abs_err": max(k2_err, dri["k2_err"],
+                                                         trans["k2_err"]),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": "bytes", "library_ms": None,
          "launches_by_path": {"main": launches["K2"],
@@ -503,19 +504,23 @@ def check_host_coefs(coefs, frames, raws, label):
 def k1_held(fn):
     """Run fn() with every K1 launch of the pixel stage held against
     dequant_idct_blocks_plain on the same inputs (the plain version
-    launches no kernel). Returns (fn's result, max |kernel - plain|, the
-    input shapes)."""
+    launches no kernel). fn may reach K1 from several threads at once.
+    Returns (fn's result, max |kernel - plain|, the input shapes)."""
+    import threading
+
     from nvimagecodec_tpu_torch.codecs.jpeg import pixel
     from nvimagecodec_tpu_torch.ops.kernels import dequant_idct_blocks_plain
 
     real = pixel.dequant_idct_blocks
-    err, shapes = [0], set()
+    err, shapes, lock = [0], set(), threading.Lock()
 
     def both(x, M, *args):
         got = real(x, M, *args)
         want = dequant_idct_blocks_plain(x, M, *args)
-        err[0] = max(err[0], int((got - want).abs().max()))
-        shapes.add(tuple(x.shape))
+        diff = int((got - want).abs().max())
+        with lock:
+            err[0] = max(err[0], diff)
+            shapes.add(tuple(x.shape))
         return got
 
     pixel.dequant_idct_blocks = both
@@ -797,9 +802,9 @@ def widen(t):
     """A tensor's samples as int32 (few torch ops take uint16)."""
     import torch
 
-    if t.dtype == torch.uint16:
-        return t.view(torch.int16).to(torch.int32) & 0xFFFF
-    return t.to(torch.int32)
+    from nvimagecodec_tpu_torch.ops.convert import widen_uint16
+
+    return widen_uint16(t).to(torch.int32)
 
 
 def psnr_db(a, b, peak: float = 255.0) -> float:
@@ -956,14 +961,16 @@ def transcode_once(jpgs, dec, enc, params, keep=None):
 
 def transcode_phase(jpgs, imgs, dec, params):
     """The transcode path on the card, K1 held against its plain version on
-    every launch: the pipelined decode equals the main path's unpipelined
-    decode exactly, the resize is within 1 of `ops/resize` on the CPU for
-    the distinct photos and all three filters, every stream decodes again to
-    224x224 at PSNR >= PSNR_BAR_DB, and K2 and K1 launched once and three
-    times a batch. Returns the phase's numbers."""
+    every launch and K2 on the bucket this path gives it (TRANSCODE_BATCH
+    images, index-scanned): the pipelined decode equals the main path's
+    unpipelined decode exactly, the resize is within 1 of `ops/resize` on
+    the CPU for the distinct photos and all three filters, every stream
+    decodes again to 224x224 at PSNR >= PSNR_BAR_DB, and K2 and K1 launched
+    once and three times a batch. Returns the phase's numbers."""
     import torch
 
     import nvimagecodec_tpu_torch as nic
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
     from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
     from nvimagecodec_tpu_torch.ops.resize import resize
 
@@ -984,6 +991,12 @@ def transcode_phase(jpgs, imgs, dec, params):
                            f"{want}")
     if k1_err > 1:
         raise RuntimeError(f"transcode path: K1 vs plain {k1_err} > 1")
+    # K2 at this path's shape: one of its batches, split as the route does
+    first = transcode_batches(jpgs)[0]
+    frames = {i: jb.parse_jpeg_structure(d) for i, d in enumerate(first)}
+    k2_err, _plain_ms, k2_args, _stacks = k2_held(
+        "idx", frames, dict(enumerate(first)), TRANSCODE_BATCH,
+        torch.device("cuda"))
     if be.ROUTES["device"] - routes0["device"] != n:
         raise RuntimeError("transcode path: the encode left the device route")
     if len(streams) != n or any(d is None for d in streams):
@@ -1018,10 +1031,13 @@ def transcode_phase(jpgs, imgs, dec, params):
     phase("transcode_path", f"{TRANSCODE_BATCHES} batches of "
           f"{TRANSCODE_BATCH} streams, depth 2: pipelined decode equals the "
           f"unpipelined one exactly; launches {launches}; K1 vs plain max "
-          f"|diff| {k1_err}; resize to {TRANSCODE_HW}x{TRANSCODE_HW} on the "
+          f"|diff| {k1_err}; K2 bit-exact vs plain on this path's "
+          f"{TRANSCODE_BATCH}-image idx bucket (words "
+          f"{tuple(k2_args[0].shape)}; stacks and err, max |diff| {k2_err}); "
+          f"resize to {TRANSCODE_HW}x{TRANSCODE_HW} on the "
           f"card within {diffs} of the CPU's; {n}/{n} encoded via the device "
           f"route, decode again to PSNR >= {worst:.2f} dB")
-    return {"launches": launches, "k1_err": k1_err}
+    return {"launches": launches, "k1_err": k1_err, "k2_err": k2_err}
 
 
 def cli_phase(uniq, dec):

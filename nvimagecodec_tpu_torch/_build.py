@@ -128,3 +128,14 @@ def check(rc: int, what: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches`. Wrappers run on several
+    threads at once (`pipeline.decode_batches`), and `+=` on an attribute is
+    a read and a write."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1

@@ -233,9 +233,10 @@ class JpegHybridCudaEncoder(EncoderPlugin):
     """Batched encoder: bucketed fDCT/quant on `device` (a CUDA device, or
     the CPU) + native host Huffman (the modelled library's HYBRID_CPU_GPU
     nvjpeg encoder slot, extensions/nvjpeg/cuda_encoder.cpp:284-436). First
-    in the chain. A sample it rejects, or one whose host stage fails, goes
-    on to cpu_jpeg_encoder; an error of its device stage raises. Options:
-    device, device_stage (false keeps the whole encode on the host)."""
+    in the chain. Only a sample it rejects in `can_encode` goes on to
+    cpu_jpeg_encoder: one whose host stage fails after that fails alone,
+    and an error of its device stage raises. Options: device, device_stage
+    (false keeps the whole encode on the host)."""
 
     codec = "jpeg"
     plugin_id = "cuda_jpeg_hybrid_encoder"
@@ -267,11 +268,12 @@ class JpegCpuEncoder(EncoderPlugin):
     backend_kind = BackendKind.CPU_ONLY
     priority = Priority.NORMAL
     device_pixel_stage = False
-    device = torch.device("cuda")
+    device = None  # the pixel stage's device, once device_pixel_stage is set
 
     def set_options(self, opts) -> None:
         self.device_pixel_stage = get_bool(opts, "device_pixel_stage", False)
-        self.device = torch.device(opts.get("device", "cuda"))
+        self.device = (torch.device(opts.get("device", "cuda"))
+                       if self.device_pixel_stage else None)
 
     def can_encode(self, image_batch, info_batch, params) -> List[ProcessingStatus]:
         return _can_encode(image_batch)
@@ -286,10 +288,8 @@ class JpegCpuEncoder(EncoderPlugin):
         from .batch_encode import host_array
         from .encode import encode_jpeg
 
-        device = self.device if self.device_pixel_stage else None
-
         def one(img):
-            return encode_jpeg(host_array(img), params, device=device)
+            return encode_jpeg(host_array(img), params, device=self.device)
 
         if len(image_batch) > 1:
             with ThreadPoolExecutor(

@@ -32,6 +32,7 @@ from ...core.interfaces import EncodeParams, JpegEncodeParams
 from ...core.types import ChromaSubsampling
 from ...ops import color as color_ops
 from ...ops import resample as resample_ops
+from ...ops.convert import widen_uint16
 from ...ops.dct import quant_dct_matrix
 from .headers import Component, HuffTable, JpegFrame
 from .tables import (
@@ -133,9 +134,7 @@ def _samples_i32(img, device) -> torch.Tensor:
     """An image (numpy array or tensor, uint8 or uint16) as an int32 tensor
     on `device` (its own device when None)."""
     if isinstance(img, torch.Tensor):
-        if img.dtype == torch.uint16:  # few torch ops take uint16
-            img = img.view(torch.int16).to(torch.int32) & 0xFFFF
-        img = img.to(torch.int32)
+        img = widen_uint16(img).to(torch.int32)
     else:
         img = torch.from_numpy(np.asarray(img).astype(np.int32))
     return img if device is None else img.to(device)

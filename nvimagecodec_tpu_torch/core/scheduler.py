@@ -403,13 +403,20 @@ class GenericEncoder(GenericBatchProcessor):
                 if encoder.backend_kind != BackendKind.CPU_ONLY:
                     promise.fail(e)
                 results = [EncodeResult(ProcessingStatus.FAIL, error=str(e))] * len(accepted)
+            # a sample that a GPU plugin accepted and then failed keeps its
+            # failure: only can_encode rejections reach the next encoder, so
+            # no image is copied to the host and re-encoded there unseen
+            retry = bool(rest) and encoder.backend_kind == BackendKind.CPU_ONLY
             failed = []
             for e, r in zip(accepted, results):
                 if r.status & ProcessingStatus.SUCCESS:
                     promise.set(e[0], r)
-                elif rest:
+                elif retry:
                     failed.append(e)
                 else:
+                    if rest:
+                        log.warning("%s failed a sample it had accepted: %s",
+                                    encoder.plugin_id, r.error)
                     promise.set(e[0], r)
             if failed:
                 self._run_chain(rest, failed, params, promise)

@@ -54,6 +54,14 @@ def _sample_type(t: torch.Tensor) -> SampleDataType:
     raise ValueError(f"unsupported sample type {t.dtype}")
 
 
+def widen_uint16(t: torch.Tensor) -> torch.Tensor:
+    """uint16 as int32 (few torch ops take uint16); anything else as it
+    is."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return t
+
+
 def convert_dtype(t: torch.Tensor, dst: SampleDataType) -> torch.Tensor:
     """Saturating-normalised dtype conversion (ConvertSatNorm)."""
     src = _sample_type(t)

@@ -466,7 +466,7 @@ def decode_segments_into(words: torch.Tensor, side: torch.Tensor,
         mcus_y, R, B, nsegs, _ptr_array(stacks), err.data_ptr(), lpw, warps,
         stream)
     _build.check(rc, "K2 huffman launch")
-    decode_segments_into.launches += 1
+    _build.count_launch(decode_segments_into)
     return stacks, err
 
 
@@ -819,7 +819,7 @@ def decode_prog_scan_into(kind: str, words: torch.Tensor, side: torch.Tensor,
         look.data_ptr(), L, len(mine), hv_p, cols_p, _ptr_array(mine), width,
         units, R, ss, se, al, err.data_ptr(), warps, stream)
     _build.check(rc, "K3 progressive huffman launch")
-    decode_prog_scan_into.launches += 1
+    _build.count_launch(decode_prog_scan_into)
     return err
 
 

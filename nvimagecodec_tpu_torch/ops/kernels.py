@@ -98,7 +98,7 @@ def dequant_idct_blocks(coefs: torch.Tensor, M: torch.Tensor,
         coefs.data_ptr(), K, int(zigzag), M.data_ptr(), out.data_ptr(),
         nblocks, float(1 << (precision - 1)), (1 << precision) - 1, stream)
     _build.check(rc, "K1 idct launch")
-    dequant_idct_blocks.launches += 1
+    _build.count_launch(dequant_idct_blocks)
     return out
 
 

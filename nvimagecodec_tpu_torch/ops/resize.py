@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from .convert import widen_uint16
+
 
 def _spatial_axes(img: torch.Tensor):
     """(axis of rows, axis of columns), both negative."""
@@ -36,14 +38,6 @@ def _finish(out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         # not every build converts to uint16 directly
         return out.to(torch.int32).to(torch.int16).view(torch.uint16)
     return out.to(dtype)
-
-
-def _widened(img: torch.Tensor) -> torch.Tensor:
-    """uint16 as int32 (few torch ops take uint16); anything else as it
-    is."""
-    if img.dtype == torch.uint16:
-        return img.view(torch.int16).to(torch.int32) & 0xFFFF
-    return img
 
 
 @functools.lru_cache(maxsize=256)
@@ -65,7 +59,7 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int):
     ay, ax = _spatial_axes(img)
     y0, y1, wy = _bilinear_taps(img.shape[ay], out_h, img.device)
     x0, x1, wx = _bilinear_taps(img.shape[ax], out_w, img.device)
-    src = _widened(img)
+    src = widen_uint16(img)
     r0 = src.index_select(ay, y0)
     r1 = src.index_select(ay, y1)
     p00 = r0.index_select(ax, x0).to(torch.float32)
@@ -132,7 +126,7 @@ def _axis_weights_on(n_in: int, n_out: int, taps: int, kernel,
 def _resize_separable(img: torch.Tensor, out_h: int, out_w: int, taps: int,
                       kernel):
     ay, ax = _spatial_axes(img)
-    out = _widened(img).to(torch.float32)
+    out = widen_uint16(img).to(torch.float32)
     for axis, n_out in ((ay, out_h), (ax, out_w)):
         idx, wts = _axis_weights_on(out.shape[axis], n_out, taps, kernel,
                                     img.device)

@@ -43,7 +43,13 @@ def decode_batches(
     consumer may assume: every tensor of a yielded batch is complete in
     device memory and may be read from any stream without further
     synchronisation. Failed samples are dropped, or kept as None with
-    drop_failed=False. `decoder` defaults to `Decoder()`, on the card."""
+    drop_failed=False. `decoder` defaults to `Decoder()`, on the card.
+
+    With depth > 1, `decoder.decode` is called from `depth` threads at the
+    same time, so a decoder given here must be safe for that. The port's
+    `Decoder` is: its caches are filled by single dictionary reads and
+    writes (at worst a value is built twice), and the route counters and the
+    kernel wrappers' launch counts are updated under locks."""
     dec = decoder or Decoder()
     params = params or DecodeParams()
     device = dec.device

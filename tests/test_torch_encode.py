@@ -367,10 +367,11 @@ def test_rejected_sample_still_falls_through_to_the_cpu_encoder(monkeypatch):
 
 
 def test_per_sample_host_failure_falls_through(monkeypatch):
-    """A sample whose host stage fails alone is no device-stage error: the
-    next encoder takes it, and only it."""
+    """A sample the hybrid encoder accepted and whose host stage then fails
+    falls through to its own failure, a None, and not to cpu_jpeg_encoder:
+    that one would copy the image to the host and encode it again unseen.
+    Its neighbours keep their streams and no exception is raised."""
     real = be._finish_one
-    real_cpu = JpegCpuEncoder.encode_batch
     calls, cpu_batches = [], []
 
     def flaky(frame, coefs, jp, tail=None):
@@ -379,16 +380,17 @@ def test_per_sample_host_failure_falls_through(monkeypatch):
             raise ValueError("entropy stage failed for this sample")
         return real(frame, coefs, jp, tail)
 
-    def cpu_encode(self, images, infos, params):
-        cpu_batches.append(len(images))
-        return real_cpu(self, images, infos, params)
-
     monkeypatch.setattr(be, "_finish_one", flaky)
-    monkeypatch.setattr(JpegCpuEncoder, "encode_batch", cpu_encode)
+    monkeypatch.setattr(JpegCpuEncoder, "encode_batch",
+                        lambda self, *a: cpu_batches.append(a))
     imgs = [make_photo(24, 32, seed=s) for s in range(3)]
+    before = dict(be.ROUTES)
     out = port.Encoder(device="cpu").encode(imgs, "jpeg")
-    assert len(calls) == 3 and cpu_batches == [1]
-    assert out == [port_encode.encode_jpeg(i) for i in imgs]
+    assert len(calls) == 3 and cpu_batches == []
+    assert be.ROUTES["device"] - before["device"] == 2
+    want = [port_encode.encode_jpeg(i) for i in imgs]
+    assert [o is None for o in out].count(True) == 1
+    assert all(o is None or o == w for o, w in zip(out, want))
 
 
 def test_bucket_tail_gives_the_per_sample_bytes():
@@ -446,3 +448,14 @@ def test_package_exports_follow_the_reference():
     missing = [n for n in ref.__all__ if not hasattr(port, n)]
     assert missing == ["configure_host_pool"]  # no host pool in the port
     assert port.global_registry() is port.port_registry()
+
+
+def test_cpu_encoder_names_a_device_only_for_its_device_pixel_stage():
+    """cpu_jpeg_encoder is the CPU_ONLY plugin: it holds no device until the
+    option device_pixel_stage asks for the pixel stage on one."""
+    plugin = JpegCpuEncoder()
+    assert plugin.device is None
+    plugin.set_options({"device": "cpu"})
+    assert plugin.device is None and not plugin.device_pixel_stage
+    plugin.set_options({"device_pixel_stage": "true", "device": "cpu"})
+    assert plugin.device == torch.device("cpu")

@@ -130,3 +130,26 @@ def test_no_device_wait_span_on_the_cpu(batches):
         got = trace.stop_collect()
     assert "imgcodec.pipeline.device_wait" not in got["spans"]
     assert got["spans"].get("imgcodec.jpeg.parse", 0) > 0
+
+
+def test_launch_counts_are_exact_across_threads():
+    """`decode_batches` calls the decoder from several threads, so the kernel
+    wrappers count their launches under a lock: no increment is lost."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nvimagecodec_tpu_torch import _build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda _: [_build.count_launch(wrapper)
+                                     for _ in range(2000)], range(8)))
+    finally:
+        sys.setswitchinterval(old)
+    assert wrapper.launches == 16000
