@@ -23,7 +23,15 @@ kernels (launch counts set to 0 just before the path, read just after):
 - transcode path: `pipeline.decode_batches` over 4 batches of 64 streams at
   depth 2 (K2, K1), `resize` to 224x224 on the card, `Encoder.encode`;
 - cli: `python -m nvimagecodec_tpu_torch.cli` imtrans on 16 JPEGs and improc
-  --resize on one, as a user would run them.
+  --resize on one, as a user would run them;
+- j2k path: 8 lossless 1024x1024 RGB JPEG2000 streams (5 levels, made at run
+  time by the port's own encoder) through the public Decoder: Tier-2 and
+  Tier-1 on the host, all subbands up in one pinned buffer, IDWT + inverse
+  RCT + level shift as torch ops on the card (no hand-written kernel: the
+  JAX package has none there either), equal to the photos and to the CPU
+  decode; then a uniform and a partial tile grid, 9/7, 16-bit, gray, HT and
+  the committed HTJ2K streams, a J2K encode of a CUDA tensor, and a forced
+  failure of the device stage, which must raise and reach no other decoder.
 
 It checks the images and coefficients against the CPU and the native host
 decoder, holds each kernel against its plain PyTorch version on the card,
@@ -63,6 +71,10 @@ K2_GOAL_MS = 0.75  # one bucket of 256 images
 K3_GOAL_MS = 0.65  # the 10 scans of one stream
 PSNR_BAR_DB = 33.0  # a re-encoded image against the tensor it came from
 TRANSCODE_BATCHES, TRANSCODE_BATCH, TRANSCODE_HW = 4, 64, 224
+J2K_BATCH, J2K_HW, J2K_LEVELS = 8, 1024, 5  # the reference bench's J2K corpus
+# the card's host link: PCIe Gen5 x16, 64 GB/s each way (H100 SXM data sheet:
+# 128 GB/s both ways)
+PCIE_BYTES_PER_S = 64e9
 # torch.cuda._sleep counts the card's clock; at least this many a millisecond
 # (the H100's boost clock is 1.98 GHz), so a spin is never shorter than asked
 SPIN_CYCLES_PER_MS = 2.0e6
@@ -260,7 +272,13 @@ def main() -> int:
     # 12) the command line, as a user would run it
     cli_phase(uniq, dec)
 
-    # 13) times (informational; no claim)
+    # 13) the J2K path: host Tier-2 / Tier-1, pixel stage on the card
+    j2k = j2k_phase(dev)
+    j2k_frames_phase(j2k["photos"][0], dev)
+    j2k_encode_phase(j2k["photos"][1], dev)
+    j2k_failure_phase(j2k["streams"][:2])
+
+    # 14) times (informational; no claim)
     k1_ms = sum(cuda_ms(lambda i, x=x, M=M: dequant_idct_blocks(x, M, 8, True),
                         20) for x, M in k1_in)
     k1_plain_ms = sum(
@@ -320,6 +338,7 @@ def main() -> int:
           f"(x{prog_ips['device'] / prog_ips['host']:.3f})")
 
     encode_times(imgs, jpgs, dec, params, dev, card, encode_frame)
+    j2k_times(j2k, dev, card)
 
     loaded = [m for m in sys.modules
               if m == "jax" or m.split(".")[0] == "nvimagecodec_tpu"]
@@ -1164,6 +1183,377 @@ def encode_times(imgs, jpgs, dec, params, dev, card, frame):
           f"({d2h_bytes / d2h_ms / 1e6:.2f} GB/s); transcode path "
           f"(decode_batches depth 2, resize {TRANSCODE_HW}x{TRANSCODE_HW}, "
           f"encode) {trans_ips:.1f} images/s")
+
+
+def j2k_routes():
+    from nvimagecodec_tpu_torch.codecs.jpeg2000 import core as j2k_core
+
+    return dict(j2k_core.ROUTES)
+
+
+def j2k_took(before) -> dict:
+    now = j2k_routes()
+    return {k: now[k] - before[k] for k in before}
+
+
+@contextlib.contextmanager
+def no_host_idwt():
+    """While the J2K path is driven on the card: the native 5/3 synthesis,
+    the native epilogue's caller and the host 9/7 synthesis belong to the
+    host path, and reaching one of them is a failure."""
+    from nvimagecodec_tpu_torch.codecs.jpeg2000 import core as j2k_core
+
+    names = ("idwt53", "_host_idwt2d", "_plane_pool")
+    real = {n: getattr(j2k_core, n) for n in names}
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise RuntimeError(f"the J2K device path reached {name}")
+        return fn
+
+    for n in names:
+        setattr(j2k_core, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(j2k_core, n, fn)
+
+
+def j2k_phase(dev):
+    """8 lossless 1024x1024 streams through Decoder(device="cuda"): every
+    one on the device route, a CUDA uint8 tensor equal to its photo and to
+    the CPU decode."""
+    import numpy as np
+    import torch
+
+    import nvimagecodec_tpu_torch as nic
+    from nvimagecodec_tpu_torch.codecs.jpeg2000.core import encode_j2k
+    from util import make_photo
+
+    t0 = time.perf_counter()
+    photos = [make_photo(J2K_HW, J2K_HW, seed=s) for s in range(J2K_BATCH)]
+    with ThreadPoolExecutor(4) as pool:
+        streams = list(pool.map(
+            lambda im: encode_j2k(im, reversible=True, levels=J2K_LEVELS,
+                                  stream_type="j2k"), photos))
+    enc_s = time.perf_counter() - t0
+    dec = nic.Decoder(device="cuda",
+                      backends=[nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)])
+    before = j2k_routes()
+    with no_host_idwt():
+        imgs = dec.decode(streams)
+        torch.cuda.synchronize()
+    took = j2k_took(before)
+    if took != {"device": J2K_BATCH, "device_tiles": 0, "host": 0}:
+        raise RuntimeError(f"j2k path: not all on the device route: {took}")
+    for j, (im, photo) in enumerate(zip(imgs, photos)):
+        if (im is None or not im.array.is_cuda or im.dtype != np.uint8
+                or im.shape != (J2K_HW, J2K_HW, 3)):
+            raise RuntimeError(f"j2k path: bad result {j}: {im}")
+        if not torch.equal(im.array.cpu(), torch.from_numpy(photo)):
+            raise RuntimeError(f"j2k path: image {j} is not its photo")
+    cpu = nic.Decoder(device="cpu").decode(streams)
+    diff = max_diff(imgs, cpu)
+    if diff != 0:
+        raise RuntimeError(f"j2k path vs CPU decode: max |diff| {diff}")
+    phase("j2k_path", f"{J2K_BATCH}/{J2K_BATCH} lossless {J2K_HW}x{J2K_HW}x3 "
+          f"streams ({sum(map(len, streams)) // J2K_BATCH} B mean, encoded "
+          f"here in {enc_s:.2f} s) -> CUDA uint8 via the device route {took}; "
+          f"each equals its photo and the CPU decode (max |diff| {diff}); no "
+          "host IDWT ran")
+    return {"photos": photos, "streams": streams}
+
+
+def j2k_frames_phase(photo, dev):
+    """The other frames, one stream each: tile grids, 9/7, 16-bit, gray, HT,
+    and the committed HTJ2K streams, card against the port's CPU decode."""
+    import numpy as np
+    import torch
+
+    import nvimagecodec_tpu_torch as nic
+    from nvimagecodec_tpu_torch.codecs.jpeg2000.codestream import (
+        parse_main_header,
+        unwrap_jp2,
+    )
+    from nvimagecodec_tpu_torch.codecs.jpeg2000.core import encode_j2k
+
+    any_depth = nic.DecodeParams(allow_any_depth=True)
+    dec = nic.Decoder(device="cuda")
+    cpu = nic.Decoder(device="cpu")
+    u16 = photo[:512, :512].astype(np.uint16) * 257 + 3
+    frames = [  # name, image, encode keywords, route, tolerance vs the photo
+        ("tiles 256 (16 tiles)", photo, dict(tile_size=256), "device_tiles", 0),
+        ("partial grid 1000x900, tiles 256", photo[:900, :1000],
+         dict(tile_size=256), "host", 0),
+        ("irreversible q85", photo, dict(reversible=False, quality=85),
+         "device", None),
+        ("uint16 512x512", u16, {}, "device", 0),
+        ("gray", photo[:, :, 1], {}, "device", 0),
+        ("HT", photo, dict(ht=True), "device", 0),
+    ]
+    notes = []
+    for name, img, kw, route, tol in frames:
+        kw = {"reversible": True, "levels": J2K_LEVELS, **kw}
+        data = encode_j2k(np.ascontiguousarray(img), **kw)
+        before = j2k_routes()
+        got = dec.decode(data, any_depth)
+        took = {k: v for k, v in j2k_took(before).items() if v}
+        if took != {route: 1}:
+            raise RuntimeError(f"j2k {name}: route {took}, not {route}")
+        if got is None or got.array.is_cuda != (route != "host"):
+            raise RuntimeError(f"j2k {name}: result {got} on the wrong side")
+        want = cpu.decode(data, any_depth)
+        a = got.array.cpu().numpy().astype(np.int64)
+        d_cpu = int(np.abs(a - np.asarray(want).astype(np.int64)).max())
+        if a.shape != img.shape or d_cpu > (0 if tol == 0 else 1):
+            raise RuntimeError(f"j2k {name}: card vs CPU decode {d_cpu}")
+        if tol == 0 and not np.array_equal(a, img):
+            raise RuntimeError(f"j2k {name}: not lossless")
+        note = f"{name}: {route}, card vs CPU {d_cpu}"
+        if tol is None:
+            note += (", PSNR vs photo "
+                     f"{psnr_db(got.array.cpu(), torch.from_numpy(img)):.2f}"
+                     " dB")
+        notes.append(note)
+    # the committed HTJ2K streams, small ones: the stage is asked for by name
+    forced = nic.Decoder(device="cuda", options=(
+        "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=true"))
+    ht_dir = os.path.join(ROOT, "tests", "_corpus", "htj2k")
+    names = sorted(f for f in os.listdir(ht_dir)
+                   if f.endswith((".j2k", ".jp2")))
+    worst = 0
+    on_card = 0
+    for f in names:
+        with open(os.path.join(ht_dir, f), "rb") as fh:
+            data = fh.read()
+        _siz, cp, _pos = parse_main_header(unwrap_jp2(data), 0)
+        got = forced.decode(data, any_depth)
+        want = cpu.decode(data, any_depth)
+        if got is None or want is None:
+            raise RuntimeError(f"j2k corpus {f}: decode failed")
+        on_card += int(got.array.is_cuda)
+        d = int(np.abs(got.array.cpu().numpy().astype(np.int64)
+                       - np.asarray(want).astype(np.int64)).max())
+        if d > (0 if cp.reversible else 1):
+            raise RuntimeError(f"j2k corpus {f}: card vs CPU decode {d}")
+        worst = max(worst, d)
+    torch.cuda.synchronize()
+    phase("j2k_frames", "; ".join(notes) + f"; tests/_corpus/htj2k: "
+          f"{len(names)} streams, {on_card} through the device stage, card "
+          f"vs CPU decode max |diff| {worst} (0 where reversible)")
+
+
+def j2k_encode_phase(photo, dev):
+    """A CUDA tensor through Encoder(device="cuda") to JP2, lossless, and
+    back through the card: exact, and the CPU encoder's bytes."""
+    import torch
+
+    import nvimagecodec_tpu_torch as nic
+
+    params = nic.EncodeParams(
+        jpeg2k=nic.Jpeg2kEncodeParams(reversible=True))
+    t = torch.from_numpy(photo).to(dev)
+    t0 = time.perf_counter()
+    data = nic.Encoder(device="cuda").encode(t, "jp2", params)
+    secs = time.perf_counter() - t0
+    if data is None or data != nic.Encoder(device="cpu").encode(
+            photo, "jp2", params):
+        raise RuntimeError("j2k encode: not the CPU encoder's bytes")
+    back = nic.Decoder(device="cuda").decode(data)
+    if back is None or not back.array.is_cuda or not torch.equal(back.array, t):
+        raise RuntimeError("j2k encode: the stream does not decode back "
+                           "exactly on the card")
+    phase("j2k_encode", f"CUDA uint8 {tuple(t.shape)} -> jp2 (reversible, "
+          f"{len(data)} B, {secs * 1e3:.1f} ms on the host) -> decoded on the "
+          "card: exact; bytes equal the CPU encoder's")
+
+
+def j2k_failure_phase(streams):
+    """A failing device stage raises out of Decoder.decode; no other decoder
+    answers for it."""
+    import nvimagecodec_tpu_torch as nic
+    from nvimagecodec_tpu_torch.codecs import system_codecs
+    from nvimagecodec_tpu_torch.codecs.jpeg2000 import core as j2k_core
+    from nvimagecodec_tpu_torch.ops import dwt as dwt_ops
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("forced failure of the device stage")
+
+    answered = []
+    real_idwt = dwt_ops.idwt2d
+    real_opj = system_codecs.OpjJpeg2kDecoder.decode_batch
+    dwt_ops.idwt2d = broken
+    system_codecs.OpjJpeg2kDecoder.decode_batch = (
+        lambda self, *a: answered.append(a))
+    raised = None
+    try:
+        nic.Decoder(device="cuda").decode(list(streams))
+    except j2k_core.J2kDeviceStageError as e:
+        raised = e
+    finally:
+        dwt_ops.idwt2d = real_idwt
+        system_codecs.OpjJpeg2kDecoder.decode_batch = real_opj
+    if raised is None:
+        raise RuntimeError("j2k failure: Decoder.decode did not raise")
+    if answered:
+        raise RuntimeError("j2k failure: system_openjpeg_decoder answered")
+    phase("j2k_failure", f"forced device-stage failure raised "
+          f"{type(raised).__name__} out of Decoder.decode; "
+          "system_openjpeg_decoder was not called")
+
+
+def j2k_times(j2k, dev, card):
+    """The J2K device stage of one 1024x1024x3 lossless stream beside its
+    bounds and the host IDWT it replaces, Decoder.decode rates per route
+    (alternated), and the crossover over four image sizes."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import nvimagecodec_tpu_torch as nic
+    from nvimagecodec_tpu_torch import native
+    from nvimagecodec_tpu_torch.codecs.jpeg2000 import core as j2k_core
+    from nvimagecodec_tpu_torch.codecs.jpeg2000.t1_bridge import idwt53
+    from nvimagecodec_tpu_torch.core import trace
+    from util import make_photo
+
+    data, photo = j2k["streams"][0], j2k["photos"][0]
+    t0 = time.perf_counter()
+    job = j2k_core._decode_host_stages(data, 0, dev, 0, None, False)
+    host_stage_ms = (time.perf_counter() - t0) * 1e3
+    flat = job.stage.flat
+    out = j2k_core._run_device_stage(job)
+    if not torch.equal(out.cpu(), torch.from_numpy(photo)):
+        raise RuntimeError("j2k times: the timed stage is not exact")
+    stage_ms = cuda_ms(lambda i: j2k_core._run_device_stage(job), 20)
+    up_ms = cuda_ms(lambda i: flat.to(dev, non_blocking=True), 20)
+    LL, bands = job.stage.upload(dev)
+
+    def pixels(i):
+        px = j2k_core.device_pixels(LL, bands, job.tile_shape, True, True, 8,
+                                    job.origin)
+        return j2k_core._to_samples(px.permute(1, 2, 0), 8)
+
+    px_ms = cuda_ms(pixels, 20)
+    # behind a spin the events see the card alone, not the host's launching
+    px_held_ms = cuda_ms(pixels, 5, hold_ms=60)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        j2k_core._run_device_stage(job)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_launch = sum(e.count for e in ev)
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    in_b = flat.numel() * flat.element_size()
+    out_b = out.numel() * out.element_size()
+    bound_ms = (in_b + out_b) / HBM_BYTES_PER_S * 1e3
+    up_bound_ms = in_b / PCIE_BYTES_PER_S * 1e3
+    if n_launch == 0:
+        raise RuntimeError("j2k times: the profiler saw no device activity")
+
+    # the host IDWT + epilogue the stage replaces, on the same subbands
+    leaves = job.stage.leaves
+    L = native.lib()
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+
+    def host_plane(c):
+        bands_c = [tuple(leaves[1 + 3 * k + b][c] for b in range(3))
+                   for k in range(J2K_LEVELS)]
+        return idwt53(leaves[0][c], bands_c, job.tile_shape, job.origin)
+
+    def host_idwt(pool):
+        planes = (list(pool.map(host_plane, range(3))) if pool
+                  else [host_plane(c) for c in range(3)])
+        u8 = np.empty((J2K_HW, J2K_HW, 3), np.uint8)
+        L.tic_j2k_rct_shift_u8(*(p.ctypes.data_as(i32p) for p in planes),
+                               J2K_HW * J2K_HW, u8.ctypes.data_as(u8p))
+        return u8
+
+    if not np.array_equal(host_idwt(None), photo):
+        raise RuntimeError("j2k times: the host IDWT is not exact")
+    host_ms = {}
+    for label, pool in (("one thread", None),
+                        ("plane pool", j2k_core._plane_pool())):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            host_idwt(pool)
+        host_ms[label] = (time.perf_counter() - t0) / 5 * 1e3
+    phase("times", f"on {card}: J2K device stage of one lossless "
+          f"{J2K_HW}x{J2K_HW}x3 stream (upload + IDWT + RCT + shift, CUDA "
+          f"events) {stage_ms:.4f} ms = upload {up_ms:.4f} ms "
+          f"({in_b / up_ms / 1e6:.2f} GB/s; {in_b} B over the link's "
+          f"{PCIE_BYTES_PER_S / 1e9:.0f} GB/s = {up_bound_ms:.4f} ms) + torch "
+          f"ops {px_ms:.4f} ms at the host's pace of launching, "
+          f"{px_held_ms:.4f} ms behind a spin; {n_launch} device launches "
+          f"(kernels and copies, torch.profiler), device busy {busy_ms:.4f} "
+          f"ms; bytes bound {bound_ms:.4f} ms ({in_b} B of int32 subbands "
+          f"read + {out_b} B of uint8 written over 3.35 TB/s); the host "
+          f"stages before it (Tier-2 + Tier-1, one stream alone) "
+          f"{host_stage_ms:.1f} ms; the host IDWT + epilogue it replaces "
+          f"(tic_idwt53 x3 + tic_j2k_rct_shift_u8) {host_ms['one thread']:.3f}"
+          f" ms on one thread, {host_ms['plane pool']:.3f} ms over the plane "
+          "pool")
+
+    # Decoder.decode per route, alternated within this call
+    dec_dev = nic.Decoder(device="cuda")
+    dec_host = nic.Decoder(device="cuda", options=(
+        "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=false"))
+
+    def rate(dec, streams, reps):
+        dec.decode(streams)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dec.decode(streams)
+        torch.cuda.synchronize()
+        return reps * len(streams) / (time.perf_counter() - t0)
+
+    order = [("device", dec_dev), ("host", dec_host), ("host", dec_host),
+             ("device", dec_dev)]
+    ips = {"device": [], "host": []}
+    for name, dec in order:
+        ips[name].append(rate(dec, j2k["streams"], 3))
+    trace.start_collect()
+    dec_dev.decode(j2k["streams"])
+    torch.cuda.synchronize()
+    got = trace.stop_collect()
+    spans = {k.rsplit(".", 1)[1]: v * 1e3 for k, v in got["spans"].items()
+             if k.startswith("imgcodec.jpeg2k.")}
+    phase("times", f"on {card}: Decoder.decode of {J2K_BATCH} lossless "
+          f"{J2K_HW}x{J2K_HW} J2K streams, device stage "
+          f"{ips['device'][0]:.2f} / {ips['device'][1]:.2f} images/s, "
+          f"device_pixel_stage=false {ips['host'][0]:.2f} / "
+          f"{ips['host'][1]:.2f} images/s (order device, host, host, device); "
+          "spans of one device-stage batch summed over its "
+          f"{J2K_BATCH} worker threads, ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(spans.items()))
+          + f"; H2D {got['counters'].get('imgcodec.jpeg2k.h2d_bytes', 0)} B")
+
+    # the crossover: one stream a call, device stage forced against host
+    forced = nic.Decoder(device="cuda", options=(
+        "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=true"))
+    rows = []
+    for hw in (128, 256, 512, 1024, 2048):
+        im = make_photo(hw, hw, seed=3)
+        s = j2k_core.encode_j2k(im, reversible=True, levels=J2K_LEVELS,
+                                stream_type="j2k")
+        reps = max(3, min(40, (1 << 22) // (hw * hw)))
+        r = {"device": [], "host": []}
+        for name, dec in (("device", forced), ("host", dec_host),
+                          ("host", dec_host), ("device", forced)):
+            r[name].append(rate(dec, [s], reps))
+        rows.append(f"{hw}x{hw}: device {r['device'][0]:.1f} / "
+                    f"{r['device'][1]:.1f}, host {r['host'][0]:.1f} / "
+                    f"{r['host'][1]:.1f}")
+    phase("times", f"on {card}: J2K crossover, Decoder.decode of one lossless "
+          "RGB stream a call, images/s with the device stage forced against "
+          f"device_pixel_stage=false (floor today: "
+          f"{j2k_core.DEVICE_STAGE_MIN_PIXELS} pixels): " + "; ".join(rows))
 
 
 if __name__ == "__main__":

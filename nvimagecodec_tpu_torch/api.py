@@ -1,13 +1,17 @@
 """Public Decoder/Encoder API of the CUDA port.
 
-The port of nvimagecodec_tpu/api.py. `Decoder(device=...)` decodes JPEG on
-that device ("cuda" unless told otherwise; the CPU only when asked for, never
-by detection); other formats decode on the host through the host plugins
-and come back as CPU tensors. Failed samples come back as None. EXIF
-orientation, ROI crop, GRAY and sample-format/type conversion follow the
-reference (api.py:97-151). `Encoder(device=...)` encodes JPEG with the pixel
-stage on that device and takes images that live there as they are; other
-formats encode on the host.
+The port of nvimagecodec_tpu/api.py. `Decoder(device=...)` runs the pixel
+stage of JPEG and of JPEG2000 on that device ("cuda" unless told otherwise;
+the CPU only when asked for, never by detection) and returns those images
+there. Other formats, and the J2K streams that keep their pixel stage on the
+host (ROI, a partial tile grid, discard_levels, small images), decode on the
+host and come back as CPU tensors, so a mixed batch may lie on two devices:
+`decode(..., to_device=True)` puts every returned image on the decoder's
+device (the counterpart of the reference's `to_tpu`). Failed samples come
+back as None. EXIF orientation, ROI crop, GRAY and sample-format/type
+conversion follow the reference (api.py:97-151). `Encoder(device=...)`
+encodes JPEG with the pixel stage on that device and takes images that live
+there as they are; other formats, JPEG2000 among them, encode on the host.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from .codecs.jpeg import (
     JpegHybridCudaDecoder,
     JpegHybridCudaEncoder,
 )
+from .codecs.jpeg2000 import Jpeg2kHybridCudaDecoder
 from .core.code_stream import CodeStream
 from .core.interfaces import DecodeParams, EncodeParams
 from .core.registry import CodecRegistry
@@ -65,23 +70,29 @@ class Decoder:
                  options: str = "", max_num_cpu_threads: int = 0,
                  registry: Optional[CodecRegistry] = None, executor=None):
         self.device = torch.device(device)
-        # the device reaches the JPEG plugin as its option; it wins over a
-        # device named in `options`
+        # the device reaches the JPEG and J2K plugins as their option; it
+        # wins over a device named in `options`
         options = (f"{options} {JpegHybridCudaDecoder.plugin_id}:"
+                   f"device={self.device} {Jpeg2kHybridCudaDecoder.plugin_id}:"
                    f"device={self.device}")
         self._generic = GenericDecoder(
             registry=registry or port_registry(), backends=backends,
             options=options, max_num_cpu_threads=max_num_cpu_threads,
             executor=executor)
 
-    def decode(self, src, params: Optional[DecodeParams] = None):
+    def decode(self, src, params: Optional[DecodeParams] = None,
+               to_device: bool = False):
+        """Decode one source or a list. to_device=True places every
+        returned image on the decoder's device: host-decoded formats are
+        uploaded, device-decoded ones stay where they are."""
         if isinstance(src, (list, tuple)):
-            return self._decode_batch(list(src), params)
-        return self._decode_batch([src], params)[0]
+            return self._decode_batch(list(src), params, to_device)
+        return self._decode_batch([src], params, to_device)[0]
 
-    def read(self, path, params: Optional[DecodeParams] = None):
+    def read(self, path, params: Optional[DecodeParams] = None,
+             to_device: bool = False):
         """Decode from file path(s)."""
-        return self.decode(path, params)
+        return self.decode(path, params, to_device)
 
     def decode_async(self, sources, params: Optional[DecodeParams] = None):
         """Submit a batch; returns a ProcessingResultsFuture of raw
@@ -94,7 +105,8 @@ class Decoder:
         return [s if isinstance(s, CodeStream)
                 else CodeStream(s, self._generic.registry) for s in sources]
 
-    def _decode_batch(self, sources: List[Source], params):
+    def _decode_batch(self, sources: List[Source], params,
+                      to_device: bool = False):
         params = params or DecodeParams()
         streams = self._streams(sources)
         results = self._generic.decode_batch(streams, params)
@@ -118,6 +130,8 @@ class Decoder:
             if (params.sample_format is not None
                     or params.sample_type is not None):
                 t = convert(t, params.sample_format, params.sample_type)
+            if to_device:
+                t = t.to(self.device, non_blocking=True)
             out.append(Image(t.contiguous(), info))
         return out
 

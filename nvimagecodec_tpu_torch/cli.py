@@ -8,9 +8,9 @@ command_line_params.h — flags -i/-o/-c/-q/--psnr/--chroma_subsampling/
 --ignore_orientation/-b batch/-v, per-phase timing;
 example/nvimproc/main.cpp:29-48 — decode, crop, resize, encode). Same flags
 and output, plus `--device` (default cuda): JPEG decodes and encodes there,
-`improc` crops and resizes there, and a decoded image goes to the encoder
-as the tensor it is. JPEG2000 output (-c jp2|j2k|jpeg2k) fails per image
-with `[encode-fail]`: the port has no JPEG2000 encoder yet.
+JPEG2000 runs its pixel stage there when decoding, `improc` crops and
+resizes there, and a decoded image goes to the encoder as the tensor it is.
+JPEG2000 output (-c jp2|j2k|jpeg2k) is encoded on the host.
 
 Usage:
     python -m nvimagecodec_tpu_torch.cli imtrans -i in.jpg -c bmp -o out_dir/
@@ -65,9 +65,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("-i", "--input", required=True, help="input file or dir")
     p.add_argument("-o", "--output", default=".", help="output file or dir")
     p.add_argument("-c", "--output_codec", default="bmp",
-                   help="bmp|pnm|png|tiff|jpeg; jpeg2k|jp2|j2k fail per "
-                        "image with [encode-fail] (no JPEG2000 encoder in "
-                        "this package yet)")
+                   help="bmp|pnm|png|tiff|jpeg|jpeg2k|jp2|j2k")
     p.add_argument("-q", "--quality", type=float, default=95)
     p.add_argument("--psnr", type=float, default=50)
     p.add_argument("--chroma_subsampling", default=None,

@@ -3,14 +3,14 @@
 Registers the port's parsers and plugins: the host codecs (BMP, PNM, PNG,
 TIFF, WebP, the system-library rungs, the JPEG CPU and lossless decoders and
 the CPU JPEG encoder; the counterpart of nvimagecodec_tpu/codecs/__init__.py)
-and the GPU JPEG plugin. JPEG2000 decodes through the system-openjpeg rung
-only until its host stack is ported.
+and the GPU plugins: JPEG, and JPEG2000 (`cuda_jpeg2k_hybrid_decoder`, which
+stands above the system-openjpeg rung, and the host J2K encoder).
 """
 from __future__ import annotations
 
 from ..core.registry import CodecRegistry, global_registry
 from ..parsers import ALL_PARSERS
-from . import jpeg, png, system_codecs, tiff, webp
+from . import jpeg, jpeg2000, png, system_codecs, tiff, webp
 from .bmp import BmpDecoder, BmpEncoder
 from .pnm import PnmDecoder, PnmEncoder
 
@@ -27,6 +27,7 @@ def register_port_codecs(registry: CodecRegistry) -> None:
     png.register(registry)
     tiff.register(registry)
     webp.register(registry)
+    jpeg2000.register(registry)
     # system-library rungs, lowest on the ladder; each skips itself when
     # its library is absent
     system_codecs.register(registry)

@@ -2,13 +2,15 @@
 
 The port's own copy of nvimagecodec_tpu/native: the host stages where Python
 costs real time (JPEG entropy decode and encode, index scan, restart split,
-arithmetic and lossless JPEG, PNG defilter, TIFF LZW/fax, WebP VP8). At first
+arithmetic and lossless JPEG, PNG defilter, TIFF LZW/fax, WebP VP8, JPEG2000
+Tier-1/Tier-2). At first
 use `c++` compiles the `*.cpp` beside this file into
 `nvimagecodec_tpu_torch/build/libtic_host.so`; the library is rebuilt when a
 source is newer than it. The build writes a temporary file and renames it
 into place (`build_shared`), so concurrent processes never load a
-half-written library. The JPEG2000 sources (`j2k_*.cpp`) are not part of the
-port yet.
+half-written library. The JPEG2000 sources (`j2k_*.cpp`: Tier-1 EBCOT and HT
+block coders, the batched block entries, Tier-2 packet headers, the 5/3
+transforms and the reversible epilogue) are part of it.
 """
 from __future__ import annotations
 
@@ -200,3 +202,65 @@ def _declare(L: ctypes.CDLL) -> None:
         ctypes.c_int32, c_i32p, c_i32p, c_i32p, c_i32p,
     ]
     L.tic_jpeg_lossless_decode.restype = ctypes.c_int
+    _declare_j2k(L)
+
+
+def _declare_j2k(L: ctypes.CDLL) -> None:
+    """Every `tic_*` entry of `j2k_*.cpp` that codecs/jpeg2000 calls."""
+    c_int, c_i32, c_i64 = ctypes.c_int, ctypes.c_int32, ctypes.c_int64
+    vp, cp = ctypes.c_void_p, ctypes.c_char_p
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32pp = ctypes.POINTER(i32p)
+    vpp = ctypes.POINTER(vp)
+    intp = ctypes.POINTER(c_int)
+    sigs = {
+        # Tier-1, one block
+        "tic_j2k_t1_decode": [cp, c_int, c_int, c_int, c_int, c_int, c_int,
+                              i32p],
+        "tic_j2k_t1_encode": [i32p, c_int, c_int, c_int, u8p, c_int, intp,
+                              intp, intp, c_int, c_int],
+        "tic_ht_decode_block": [cp, c_i32, cp, c_i32, c_i32, c_i32, c_i32,
+                                c_i32, c_i32, i32p],
+        "tic_ht_encode_block": [i32p, c_i32, c_i32, c_i32, u8p, c_i32, i32p,
+                                i32p, i32p, i32p],
+        # Tier-1, a tile's blocks in one call
+        "tic_t1_decode_batch": [c_i32, cp, i32p, i32p, i32p, c_i32],
+        "tic_ht_decode_batch": [c_i32, cp, i32p, i32p, i32p, c_i32],
+        "tic_t1_decode_batch_into": [c_i32, cp, i32p, i32pp, i64p, i32p,
+                                     c_i32],
+        "tic_ht_decode_batch_into": [c_i32, cp, i32p, i32pp, i64p, i32p,
+                                     c_i32],
+        "tic_t1_encode_batch_addr": [c_i32, i32pp, i64p, i64p, u8p, i64p,
+                                     i32p, i32p, c_i32],
+        "tic_ht_encode_batch_addr": [c_i32, i32pp, i64p, i64p, u8p, i64p,
+                                     i32p, c_i32],
+        # 5/3 transforms and the reversible epilogue
+        "tic_idwt53": [i32p, vpp, c_int, c_int, c_int, c_int, c_int, i32p],
+        "tic_fdwt53": [i32p, c_int, c_int, c_int, c_int, c_int, i32p, vpp],
+        "tic_j2k_rct_shift_u8": [i32p, i32p, i32p, c_i64, u8p],
+        "tic_j2k_shift_u8": [i32p, c_i64, c_i32, u8p],
+        # Tier-2 packet headers: reader, then writer
+        "tic_t2_add_precband": [vp, c_int, c_int],
+        "tic_t2_read_packet": [vp, cp, c_i64, i64p, c_int, i32p, c_int,
+                               c_int, i64p, c_int, c_int],
+        "tic_t2_read_packet_split": [vp, cp, c_i64, i64p, c_int, i32p, c_int,
+                                     c_int, i64p, c_int, c_int, cp, c_i64,
+                                     i64p],
+        "tic_t2e_add_precband": [vp, c_int, c_int, i32p, i32p],
+        "tic_t2e_write_packet": [vp, i32p, c_int, i32p, c_int, i32p, u8p,
+                                 c_int],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(L, name)
+        fn.argtypes = argtypes
+        fn.restype = c_int
+    for name in ("tic_t2_create", "tic_t2e_create"):
+        getattr(L, name).argtypes = []
+        getattr(L, name).restype = vp
+    for name in ("tic_t2_free", "tic_t2e_free"):
+        getattr(L, name).argtypes = [vp]
+        getattr(L, name).restype = None
+    L.tic_t2_dump.argtypes = [vp, c_int, i32p, i32p, i32p]
+    L.tic_t2_dump.restype = None

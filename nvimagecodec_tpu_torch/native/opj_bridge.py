@@ -289,32 +289,15 @@ def encode_planes(planes, sub, prec: int = 8, sgnd: int = 0,
     return data
 
 
-# The lossless J2K stream (reversible 5/3, one level) that the JAX package's
-# own encoder makes of `np.random.default_rng(0).integers(0, 256, (8, 9, 3))`
-# as uint8: the port has no J2K encoder yet, so the self-validation decodes
-# these bytes.
-_VALIDATION_J2K = bytes.fromhex(
-    "ff4fff51002f0000000000090000000800000000000000000000000900000008"
-    "00000000000000000003070101070101070101ff52000c000000010101040400"
-    "01ff5c00074040484850ff90000a0000000001370001ff93cfb45017537d60ef"
-    "825cec3917810219954feab4a1d387df80c02178db48e8035fd81acff11f8198"
-    "221c4e0aa22f4562041fcfb45c08bdda99a2a48cfed2486cefea7b0bf38cf8de"
-    "de7444eec7da251f68bc7e026017e2e0063f9e1d7b89d18f4906855c015f7f1c"
-    "55729e01770cfb71a99cfa98bd31dcd2506b9782863f00d635e95afdd7bcae28"
-    "306edefcca8503a35fdf98b5f98ccfcc581dc8e6f06d9e2685a5b656e1db46da"
-    "2197bcf05f507f294e9861596944576d10bf492b7fe90e363b823b8b7a9e45ef"
-    "1a761240747e690461313f514b7856b47f35f58459bfdf98a4fc0667e62c2308"
-    "c4ce8cc463298b92c66ec54962c0cbf2aa9f0e2babdbb319ca151680fe51556c"
-    "70730059f68fae85c01c7f21b814b64ef53183390502e5a500ad80a041e02946"
-    "9fffd9")
-
-
 def _self_validate(L: ctypes.CDLL) -> None:
-    """Layout check: a tiny lossless stream must round-trip exactly through
-    the shim (guards the hand-declared opj_image layout)."""
+    """Layout check: the port's encoder's tiny lossless stream must
+    round-trip exactly through the shim (guards the hand-declared opj_image
+    layout)."""
+    from ..codecs.jpeg2000.core import encode_j2k
+
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (8, 9, 3)).astype(np.uint8)
-    data = _VALIDATION_J2K
+    data = encode_j2k(img, reversible=True, levels=1, stream_type="j2k")
     out = np.zeros(8 * 9 * 3, np.int32)
     w = ctypes.c_int32()
     h = ctypes.c_int32()

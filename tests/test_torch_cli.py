@@ -111,15 +111,72 @@ def test_jpeg_to_jpeg_transcode_decodes(corpus, tmp_path):
     assert psnr(img, back) > 30
 
 
-def test_jpeg2000_output_fails_per_image(corpus, tmp_path):
-    """No JPEG2000 encoder in the port yet: [encode-fail], exit code 1."""
+def test_jpeg2000_output_reversible_decodes_back_exactly(corpus, tmp_path):
+    """`-c jp2 --reversible` writes a file that decodes back to the input's
+    pixels, and whose bytes are the JAX package's CLI's."""
+    d, img = corpus
+    args = ["imtrans", "-i", str(d / "b.png"), "-c", "jp2", "--reversible",
+            "-o"]
+    r = _port(*args, str(tmp_path / "x.jp2"))
+    assert "processed 1/1" in r.stdout and "[encode-fail]" not in r.stderr
+    data = (tmp_path / "x.jp2").read_bytes()
+    assert data[4:8] == b"jP  "
+    back = port.Decoder(device="cpu").decode(data)
+    assert np.array_equal(np.asarray(back), img)
+    _ref(*args, str(tmp_path / "r.jp2"))
+    assert data == (tmp_path / "r.jp2").read_bytes()
+    assert "encode-fail" not in _port("imtrans", "--help", "-i", "x").stdout
+
+
+@pytest.mark.parametrize("codec,ext", [("j2k", ".j2k"), ("jpeg2k", ".j2k"),
+                                       ("jp2", ".jp2")])
+def test_jpeg2000_lossy_output_per_codec_name(corpus, tmp_path, codec, ext):
+    """Every name of the codec encodes; a directory output takes the
+    codec's extension; the stream type follows the name."""
+    d, img = corpus
+    out = tmp_path / "out"
+    out.mkdir()
+    _port("imtrans", "-i", str(d / "a.jpg"), "-c", codec, "-q", "80",
+          "--num_decomps", "3", "--block_size", "32", "-o", str(out))
+    data = (out / ("a" + ext)).read_bytes()
+    assert (data[:4] == b"\xff\x4f\xff\x51") == (codec != "jp2")
+    back = np.asarray(port.Decoder(device="cpu").decode(data))
+    assert back.shape == img.shape and psnr(img, back) > 28
+
+
+def test_jpeg2000_transcode_chain_and_improc(corpus, tmp_path):
+    """png -> jp2 (lossless) -> bmp gives the png's pixels back; improc
+    resizes a jp2 input and writes jp2; both equal the JAX package's CLI."""
+    d, img = corpus
+    _port("imtrans", "-i", str(d / "b.png"), "-c", "jp2", "--reversible",
+          "-o", str(tmp_path / "b.jp2"))
+    _port("imtrans", "-i", str(tmp_path / "b.jp2"), "-c", "bmp", "-o",
+          str(tmp_path / "b.bmp"))
+    back = port.Decoder(device="cpu").decode(
+        (tmp_path / "b.bmp").read_bytes())
+    assert np.array_equal(np.asarray(back), img)
+    args = ["improc", "-i", str(tmp_path / "b.jp2"), "--resize", "40x30",
+            "-c", "jp2", "--reversible", "-o"]
+    _port(*args, str(tmp_path / "p.jp2"))
+    _ref(*args, str(tmp_path / "r.jp2"))
+    assert ((tmp_path / "p.jp2").read_bytes()
+            == (tmp_path / "r.jp2").read_bytes())
+    small = np.asarray(port.Decoder(device="cpu").decode(
+        (tmp_path / "p.jp2").read_bytes()))
+    assert small.shape == (30, 40, 3)
+
+
+def test_jpeg2000_md5_deterministic(corpus, tmp_path):
+    """Two runs write the same bytes (the transcode determinism check of
+    tests/test_cli_transcode.py, for the J2K encoder)."""
     d, _ = corpus
-    r = _port("imtrans", "-i", str(d / "b.png"), "-c", "jp2", "-o",
-              str(tmp_path / "x.jp2"), ok=False)
-    assert r.returncode == 1
-    assert "[encode-fail]" in r.stderr and "processed 0/1" in r.stdout
-    assert not (tmp_path / "x.jp2").exists()
-    assert "encode-fail" in _port("imtrans", "--help", "-i", "x").stdout
+    sums = []
+    for i in range(2):
+        o = tmp_path / f"o{i}.j2k"
+        _port("imtrans", "-i", str(d / "b.png"), "-c", "j2k", "-q", "70",
+              "-o", str(o))
+        sums.append(hashlib.md5(o.read_bytes()).hexdigest())
+    assert sums[0] == sums[1]
 
 
 def test_undecodable_input_is_reported(tmp_path):

@@ -2,7 +2,8 @@
 PyTorch versions, the Decoder (idx and dri routes) and the progressive
 route on the GPU against the same on the CPU, and the encode device stage,
 the Encoder, resize, the input pipeline and the command line on the GPU
-against the same on the CPU.
+against the same on the CPU; and the JPEG2000 device pixel stage, the torch
+DWT and the J2K Decoder / Encoder on the GPU against the same on the CPU.
 They need a CUDA device and skip without one. On the GPU machine:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
@@ -22,6 +23,8 @@ from nvimagecodec_tpu_torch.codecs.jpeg.tables import (
 )
 from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
 from nvimagecodec_tpu_torch.codecs.jpeg import device_entropy as de
+from nvimagecodec_tpu_torch.codecs.jpeg2000 import core as j2k
+from nvimagecodec_tpu_torch.ops import dwt as dwt_ops
 from nvimagecodec_tpu_torch.ops import entropy_kernels as ek
 from nvimagecodec_tpu_torch.ops import kernels
 from util import make_photo
@@ -553,3 +556,123 @@ def test_cli_gpu(cuda, jpgs, tmp_path):
             (120, 168, 3)
     assert dec.read(str(tmp_path / "r.png")).shape == (48, 64, 3)
     assert "cuda:0" in run("imtrans", "-i", "x", "--list-devices")
+
+
+# -- JPEG2000: the device pixel stage on the card ---------------------------
+_J2K_CASES = {
+    "reversible": (dict(reversible=True, levels=5), 0),
+    "irreversible": (dict(reversible=False, quality=85, levels=5), 1),
+    "tiles": (dict(reversible=True, levels=3, tile_size=128), 0),
+    "tiles_irrev": (dict(reversible=False, quality=80, levels=3,
+                         tile_size=128), 1),
+    "ht": (dict(reversible=True, levels=4, ht=True), 0),
+    "odd_size": (dict(reversible=True, levels=4), 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_J2K_CASES))
+def test_j2k_device_stage_gpu_vs_cpu(cuda, name):
+    kw, tol = _J2K_CASES[name]
+    img = (make_photo(333, 517, seed=3) if name == "odd_size"
+           else make_photo(256, 384, seed=3))
+    data = j2k.encode_j2k(img, stream_type="j2k", **kw)
+    host = j2k.decode_j2k(data)
+    before = dict(j2k.ROUTES)
+    got = j2k.decode_j2k(data, device=cuda)
+    assert got.is_cuda and got.dtype == torch.uint8 and got.is_contiguous()
+    route = "device_tiles" if "tile_size" in kw else "device"
+    assert j2k.ROUTES[route] == before[route] + 1
+    d = (got.cpu().numpy().astype(int) - host.astype(int))
+    assert np.abs(d).max() <= tol
+    if tol == 0:
+        assert np.array_equal(host, img)
+    cpu_stage = j2k.decode_j2k(data, device=torch.device("cpu"))
+    assert np.abs(got.cpu().numpy().astype(int)
+                  - cpu_stage.numpy().astype(int)).max() <= tol
+
+
+@pytest.mark.parametrize("dtype,gray", [("uint16", False), ("uint8", True),
+                                        ("uint16", True)])
+def test_j2k_device_stage_gpu_depths_and_gray(cuda, dtype, gray):
+    img = make_photo(200, 300, seed=5)
+    if dtype == "uint16":
+        img = img.astype(np.uint16) * 257 + 3
+    if gray:
+        img = img[:, :, 0]
+    data = j2k.encode_j2k(img, reversible=True, levels=4)
+    got = j2k.decode_j2k(data, device=cuda)
+    assert got.is_cuda and str(got.dtype) == f"torch.{dtype}"
+    assert np.array_equal(got.cpu().numpy(), img)
+
+
+@pytest.mark.parametrize("reversible", [True, False])
+def test_dwt_gpu_vs_cpu(cuda, reversible):
+    rng = np.random.default_rng(2)
+    x = rng.integers(-500, 500, (2, 3, 97, 131)).astype(
+        np.int32 if reversible else np.float32)
+    for origin in ((0, 0), (3, 5)):
+        LLc, bc = dwt_ops.dwt2d(torch.from_numpy(x), 3, reversible, origin)
+        LLg, bg = dwt_ops.dwt2d(torch.from_numpy(x).to(cuda), 3, reversible,
+                                origin)
+        yc = dwt_ops.idwt2d(LLc, bc, (97, 131), reversible, origin)
+        yg = dwt_ops.idwt2d(LLg, bg, (97, 131), reversible, origin)
+        assert yg.is_cuda
+        if reversible:
+            assert torch.equal(LLg.cpu(), LLc) and torch.equal(yg.cpu(), yc)
+            assert np.array_equal(yg.cpu().numpy(), x)
+        else:
+            assert (LLg.cpu() - LLc).abs().max() <= 1e-3 * LLc.abs().max()
+            assert (yg.cpu() - yc).abs().max() <= 1e-3 * 500
+
+
+def test_j2k_decoder_gpu_routes_and_mixed_batch(cuda, jpgs, monkeypatch):
+    """Decoder(device="cuda"): a full-size stream takes the device stage and
+    comes back on the card, a small one and a partial grid stay on the host;
+    to_device puts the whole mixed batch on the card."""
+    big = make_photo(512, 512, seed=1)
+    small = make_photo(100, 150, seed=2)
+    streams = [
+        jpgs[0],
+        j2k.encode_j2k(big, reversible=True, levels=5),
+        j2k.encode_j2k(small, reversible=True, levels=2, tile_size=64),
+        port.Encoder(device="cpu").encode(small, "png"),
+        j2k.encode_j2k(small, reversible=True, levels=2),
+    ]
+    dec = port.Decoder(device="cuda")
+    before = dict(j2k.ROUTES)
+    out = dec.decode(streams)
+    took = {k: j2k.ROUTES[k] - before[k] for k in before}
+    assert took == {"device": 1, "device_tiles": 0, "host": 2}
+    assert [o.array.is_cuda for o in out] == [True, True, False, False,
+                                              False]
+    assert np.array_equal(out[1].cpu().array.numpy(), big)
+    moved = dec.decode(streams, to_device=True)
+    assert all(o.array.is_cuda for o in moved)
+    for o, want in zip(moved[1:], (big, small, small, small)):
+        assert np.array_equal(o.array.cpu().numpy(), want)
+    off = port.Decoder(device="cuda", options=(
+        "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=false"))
+    o = off.decode(streams[1])
+    assert not o.array.is_cuda and np.array_equal(o.array.numpy(), big)
+
+
+def test_j2k_device_failure_raises_on_gpu(cuda, monkeypatch):
+    data = j2k.encode_j2k(make_photo(512, 512, seed=1), reversible=True)
+
+    def boom(*a, **k):
+        raise RuntimeError("CUDA error: launch failed")
+
+    monkeypatch.setattr(dwt_ops, "idwt2d", boom)
+    with pytest.raises(j2k.J2kDeviceStageError, match="launch failed"):
+        port.Decoder(device="cuda").decode([data, data])
+
+
+def test_j2k_encoder_gpu_takes_cuda_tensors(cuda):
+    img = make_photo(256, 320, seed=4)
+    p = port.EncodeParams(jpeg2k=port.Jpeg2kEncodeParams(reversible=True))
+    data = port.Encoder(device="cuda").encode(
+        torch.from_numpy(img).to(cuda), "jp2", p)
+    assert data == port.Encoder(device="cpu").encode(img, "jp2", p)
+    back = port.Decoder(device="cuda").decode(data)
+    assert back.array.is_cuda
+    assert np.array_equal(back.array.cpu().numpy(), img)

@@ -6,8 +6,9 @@ parse, the route plan, the native index scan and word packing, the side
 band, the progressive scope check, the IDCT matrix, the parsers, the host
 encoder's bytes); within 1 where the port's CPU JPEG decoder ends in the
 port's torch pixel stage and the JAX package's in numpy (exact with
-`bitexact`). Each side gets its own package's classes; values are compared,
-never identities."""
+`bitexact`). The JPEG2000 host layer (codestream, tag trees, Tier-2 plans,
+the native block coders and 5/3 transforms) is exact. Each side gets its own
+package's classes; values are compared, never identities."""
 import dataclasses
 import enum
 import os
@@ -382,3 +383,205 @@ def test_native_build_is_atomic_under_concurrent_builds(tmp_path):
         (tmp_path / "bad.cpp").write_text("this is not C++\n")
         native.build_shared(so, [str(tmp_path / "bad.cpp")])
     assert os.listdir(os.path.dirname(so)) == ["libone.so"]
+
+
+# -- the JPEG2000 host layer -------------------------------------------------
+def _j2k_modules():
+    from nvimagecodec_tpu.codecs.jpeg2000 import (
+        codestream as rc, core as rcore, t1_bridge as rb, t2 as rt2,
+        tagtree as rtt)
+    from nvimagecodec_tpu_torch.codecs.jpeg2000 import (
+        codestream as pc, core as pcore, t1_bridge as pb, t2 as pt2,
+        tagtree as ptt)
+    return (rc, rcore, rb, rt2, rtt), (pc, pcore, pb, pt2, ptt)
+
+
+_J2K_STREAMS = {
+    "reversible": dict(reversible=True, levels=3),
+    "irreversible": dict(reversible=False, quality=70, levels=2),
+    "tiled_layers": dict(levels=2, tile_size=48, num_layers=3,
+                         prog_order="RPCL", precincts=(5, 5)),
+    "ht": dict(levels=2, ht=True, stream_type="jph"),
+    "per_comp": dict(levels=2, per_comp={1: {"cblk": (32, 32)},
+                                         2: {"eps_shift": 1}}),
+    "offset": dict(levels=2, tile_size=32, grid_offset=(5, 3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_J2K_STREAMS))
+def test_j2k_codestream_parse_equals_reference(name):
+    (rc, rcore, _rb, _rt2, _rtt), (pc, _pcore, _pb, _pt2, _ptt) = (
+        _j2k_modules())
+    data = rcore.encode_j2k(make_photo(72, 104, seed=5),
+                            **_J2K_STREAMS[name])
+    assert pc.jp2_colorspace(data) == rc.jp2_colorspace(data)
+    cs = rc.unwrap_jp2(data)
+    assert pc.unwrap_jp2(data) == cs
+    (rsiz, rcp, rpos), (psiz, pcp, ppos) = (rc.parse_main_header(cs, 0),
+                                            pc.parse_main_header(cs, 0))
+    assert type(rsiz) is not type(psiz)
+    assert plain(rsiz) == plain(psiz) and plain(rcp) == plain(pcp)
+    assert rpos == ppos
+    assert (list(rc.iter_tile_parts(cs, rpos, ppm=rcp.ppm))
+            == list(pc.iter_tile_parts(cs, ppos, ppm=pcp.ppm)))
+    for t in range(rsiz.tiles_x * rsiz.tiles_y):
+        assert rsiz.tile_rect(t) == psiz.tile_rect(t)
+    x0, y0, x1, y1 = rsiz.tile_rect(0)
+    rres = rc.build_resolutions(x0, y0, x1, y1, rcp.levels)
+    pres = pc.build_resolutions(x0, y0, x1, y1, pcp.levels)
+    assert plain(rres) == plain(pres)
+    assert (list(rc.progression_iter(rcp, {c: rres for c in range(3)}, 3,
+                                     x0, y0))
+            == list(pc.progression_iter(pcp, {c: pres for c in range(3)}, 3,
+                                        x0, y0)))
+    # the writers give the reference's marker segments back
+    assert pc.write_siz(psiz) == rc.write_siz(rsiz)
+    assert pc.write_cod(pcp) == rc.write_cod(rcp)
+    assert pc.write_qcd(pcp) == rc.write_qcd(rcp)
+    assert pc.wrap_jp2(cs, psiz, "sycc") == rc.wrap_jp2(cs, rsiz, "sycc")
+
+
+def test_j2k_tagtree_and_header_bits_equal_reference():
+    (rc, _rcore, _rb, rt2, rtt), (pc, _pcore, _pb, pt2, ptt) = _j2k_modules()
+    rng = np.random.default_rng(9)
+    vals = rng.integers(0, 6, (5, 7))
+    outs = []
+    for cs_mod, tt_mod in ((rc, rtt), (pc, ptt)):
+        tree = tt_mod.TagTree(7, 5)
+        tree.set_values(vals.ravel().tolist())
+        bw = cs_mod.HeaderBitWriter()
+        for y in range(5):
+            for x in range(7):
+                k = 1  # every leaf to full resolution, rising thresholds
+                while True:
+                    tree.encode(bw, x, y, k)
+                    if tree.coded[tree._index(0, x, y)]:
+                        break
+                    k += 1
+        data = bw.flush()
+        dec = tt_mod.TagTree(7, 5)
+        br = cs_mod.HeaderBitReader(data, 0)
+        for y in range(5):
+            for x in range(7):
+                k = 1
+                while not dec.decode(br, x, y, k):
+                    k += 1
+                assert dec.leaf_value(x, y) == vals[y, x]
+        outs.append(data)
+    assert outs[0] == outs[1]
+    for n in (1, 2, 3, 5, 6, 36, 37, 164):
+        a, b = rc.HeaderBitWriter(), pc.HeaderBitWriter()
+        rt2._npasses_write(a, n)
+        pt2._npasses_write(b, n)
+        assert a.flush() == b.flush()
+    for style in (0x01, 0x04, 0x05):
+        for npasses in (1, 4, 10, 13):
+            assert (rt2.seg_pass_groups(style, npasses)
+                    == pt2.seg_pass_groups(style, npasses))
+    seg = bytes(rng.integers(0, 255, 300).astype(np.uint8))
+    assert (plain(rt2.plan_layers(seg, 13, 2, 4))
+            == plain(pt2.plan_layers(seg, 13, 2, 4)))
+    assert (plain(rt2.plan_layers_ht(seg[:100], seg[100:], 3, 1, 3))
+            == plain(pt2.plan_layers_ht(seg[:100], seg[100:], 3, 1, 3)))
+
+
+@pytest.mark.parametrize("kind", ["t1", "ht"])
+def test_j2k_block_coders_equal_reference(kind):
+    (_rc, _rcore, rb, _rt2, _rtt), (_pc, _pcore, pb, _pt2, _ptt) = (
+        _j2k_modules())
+    rng = np.random.default_rng(4)
+    for (h, w), band in (((64, 64), 0), ((17, 33), 1), ((5, 64), 3)):
+        blk = (rng.integers(-300, 300, (h, w))
+               * (rng.random((h, w)) < 0.4)).astype(np.int32)
+        if kind == "t1":
+            a, b = rb.t1_encode(blk, band), pb.t1_encode(blk, band)
+            assert a == b
+            seg, nbps, npasses = b
+            back = pb.t1_decode(seg, w, h, band, nbps, npasses)
+            assert np.array_equal(back, rb.t1_decode(seg, w, h, band, nbps,
+                                                     npasses))
+        else:
+            a, b = rb.ht_encode(blk), pb.ht_encode(blk)
+            assert a == b
+            cup, ref_seg, B, umax = b
+            back = pb.ht_decode(cup, ref_seg, 1, w, h, B, 31 - B + 1)
+            assert np.array_equal(back, rb.ht_decode(cup, ref_seg, 1, w, h,
+                                                     B, 31 - B + 1))
+        assert np.array_equal(back, blk)
+    # the batched entries, through one tile's worth of blocks
+    blocks = [(rng.integers(-99, 99, (32, 32))).astype(np.int32)
+              for _ in range(6)]
+    res = []
+    for mod in (rb, pb):
+        eb = mod.EncodeBatch(kind == "ht")
+        for i, blk in enumerate(blocks):
+            eb.add(i, blk, i % 4)
+        res.append(list(eb.run(2)))
+    assert res[0] == res[1]
+
+
+@pytest.mark.parametrize("origin", [(0, 0), (3, 5), (1, 0)])
+def test_j2k_native_53_transforms_equal_reference(origin):
+    (_rc, _rcore, rb, _rt2, _rtt), (_pc, _pcore, pb, _pt2, _ptt) = (
+        _j2k_modules())
+    from nvimagecodec_tpu.ops import dwt as ref_dwt
+
+    rng = np.random.default_rng(6)
+    plane = rng.integers(-255, 256, (45, 61)).astype(np.int32)
+    for levels in (1, 3):
+        LLr, br = rb.fdwt53(plane, levels, origin)
+        LLp, bp = pb.fdwt53(plane, levels, origin)
+        LLn, bn = ref_dwt.dwt2d(plane, levels, True, origin)
+        assert np.array_equal(LLr, LLp) and np.array_equal(LLn, LLp)
+        for x, y, z in zip(br, bp, bn):
+            for u, v, w in zip(x, y, z):
+                assert np.array_equal(u, v) and np.array_equal(w, v)
+        back = pb.idwt53(LLp, bp, plane.shape, origin)
+        assert np.array_equal(back, plane)
+        assert np.array_equal(back, rb.idwt53(LLr, br, plane.shape, origin))
+
+
+def test_j2k_native_entries_are_declared():
+    """Every `tic_*` entry the J2K bridge calls has its argument types
+    declared in the port's native module (ctypes would pass ints and
+    pointers by guess otherwise)."""
+    L = native.lib()
+    for sym in ("tic_j2k_t1_decode", "tic_j2k_t1_encode",
+                "tic_ht_decode_block", "tic_ht_encode_block",
+                "tic_t1_decode_batch", "tic_t1_decode_batch_into",
+                "tic_ht_decode_batch", "tic_ht_decode_batch_into",
+                "tic_t1_encode_batch_addr", "tic_ht_encode_batch_addr",
+                "tic_idwt53", "tic_fdwt53", "tic_j2k_rct_shift_u8",
+                "tic_j2k_shift_u8", "tic_t2_create", "tic_t2_free",
+                "tic_t2_add_precband", "tic_t2_read_packet",
+                "tic_t2_read_packet_split", "tic_t2_dump", "tic_t2e_create",
+                "tic_t2e_free", "tic_t2e_add_precband",
+                "tic_t2e_write_packet"):
+        assert getattr(L, sym).argtypes is not None, sym
+    assert "not part of the port" not in native.__doc__
+    src = os.path.dirname(os.path.abspath(native.__file__))
+    for f in ("j2k_t1.cpp", "j2k_ht.cpp", "j2k_t2.cpp", "j2k_block_batch.cpp",
+              "j2k_idwt.cpp", "j2k_finish.cpp", "j2k_ht_tables.inc"):
+        assert os.path.exists(os.path.join(src, f)), f
+
+
+def test_j2k_epilogue_equals_numpy():
+    import ctypes
+
+    L = native.lib()
+    rng = np.random.default_rng(8)
+    y, cb, cr = (rng.integers(-200, 200, 999).astype(np.int32)
+                 for _ in range(3))
+    out = np.empty((999, 3), np.uint8)
+    i32p, u8p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8)
+    assert L.tic_j2k_rct_shift_u8(y.ctypes.data_as(i32p),
+                                  cb.ctypes.data_as(i32p),
+                                  cr.ctypes.data_as(i32p), 999,
+                                  out.ctypes.data_as(u8p)) == 0
+    g = y - ((cb + cr) >> 2)
+    want = np.clip(np.stack([cr + g, g, cb + g], -1) + 128, 0, 255)
+    assert np.array_equal(out, want.astype(np.uint8))
+    one = np.empty(999, np.uint8)
+    assert L.tic_j2k_shift_u8(y.ctypes.data_as(i32p), 999, 1,
+                              one.ctypes.data_as(u8p)) == 0
+    assert np.array_equal(one, np.clip(y + 128, 0, 255).astype(np.uint8))

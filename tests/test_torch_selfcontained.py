@@ -18,7 +18,8 @@ FILES = sorted(
               recursive=True)
 ) + ["chip_smoke.py", "tools/profile_torch_decode.py",
      "tools/profile_torch_encode.py", "tools/bench_idct.py",
-     "tools/bench_entropy.py", "tools/fp32_peak.py"]
+     "tools/bench_entropy.py", "tools/fp32_peak.py",
+     "tools/profile_torch_j2k.py"]
 
 
 def _imported_roots(tree: ast.AST):
@@ -59,10 +60,35 @@ def test_port_has_its_own_host_layer():
                 "codecs/jpeg/encode.py", "codecs/png.py", "codecs/tiff.py",
                 "codecs/webp.py", "codecs/system_codecs.py",
                 "native/__init__.py", "native/jpeg_entropy.cpp",
-                "native/opj_bridge.py"]:
+                "native/opj_bridge.py", "ops/dwt.py",
+                "codecs/jpeg2000/__init__.py", "codecs/jpeg2000/core.py",
+                "codecs/jpeg2000/codestream.py", "codecs/jpeg2000/t2.py",
+                "codecs/jpeg2000/t1_bridge.py", "codecs/jpeg2000/tagtree.py",
+                "native/j2k_t1.cpp", "native/j2k_ht.cpp", "native/j2k_t2.cpp",
+                "native/j2k_block_batch.cpp", "native/j2k_idwt.cpp",
+                "native/j2k_finish.cpp", "native/j2k_ht_tables.inc"]:
         assert os.path.exists(os.path.join(ROOT, "nvimagecodec_tpu", rel))
         assert os.path.exists(os.path.join(ROOT, "nvimagecodec_tpu_torch",
                                            rel)), rel
+
+
+J2K_FILES = [f for f in FILES if "jpeg2000" in f or f.endswith("ops/dwt.py")]
+
+
+@pytest.mark.parametrize("path", J2K_FILES)
+def test_j2k_files_carry_no_jax_route_switch(path):
+    """The J2K stack of the port has no `mesh`, no `use_jax` and no
+    TIC_J2K_* environment switch: the caller's device decides."""
+    assert len(J2K_FILES) == 7
+    with open(os.path.join(ROOT, path)) as f:
+        text = f.read()
+    for word in ("use_jax", "TIC_J2K_", "jax.", "jnp.", "device_put"):
+        assert word not in text, (path, word)
+    tree = ast.parse(text, path)
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)} | {
+        a.arg for n in ast.walk(tree) if isinstance(n, ast.arguments)
+        for a in n.args + n.kwonlyargs}
+    assert "mesh" not in names, path
 
 
 _BLOCKER = r"""
@@ -159,6 +185,29 @@ for codec, data in streams.items():
 webp = oracle.webp_encode_rgb(imgs[1], 80.0)
 assert port.CodeStream(webp).codec_name == "webp"
 close(dec.decode(webp), imgs[1])
+""",
+    "jpeg2000": r"""
+from nvimagecodec_tpu_torch.codecs.jpeg2000 import core as j2k
+enc = port.Encoder(device="cpu")
+lossless = port.EncodeParams(jpeg2k=port.Jpeg2kEncodeParams(reversible=True))
+jp2 = enc.encode(imgs[3], "jp2", lossless)
+ht = enc.encode(imgs[3], "j2k", port.EncodeParams(
+    jpeg2k=port.Jpeg2kEncodeParams(reversible=True, ht=True,
+                                   stream_type="j2k")))
+lossy = enc.encode(imgs[3], "jp2", port.EncodeParams(quality=80))
+assert port.CodeStream(jp2).codec_name == "jpeg2k"
+for opt in ("true", "false"):
+    dec = port.Decoder(device="cpu", options=(
+        "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=" + opt))
+    before = dict(j2k.ROUTES)
+    a, b, c = dec.decode([jp2, ht, lossy])
+    assert np.array_equal(np.asarray(a), imgs[3])
+    assert np.array_equal(np.asarray(b), imgs[3])
+    close(c, imgs[3], 4.0)
+    took = {k: j2k.ROUTES[k] - before[k] for k in before}
+    assert took == ({"device": 3, "device_tiles": 0, "host": 0}
+                    if opt == "true" else
+                    {"device": 0, "device_tiles": 0, "host": 3}), took
 """,
     "encode": r"""
 enc, dec = port.Encoder(device="cpu"), port.Decoder(device="cpu")
