@@ -1370,36 +1370,52 @@ def j2k_encode_phase(photo, dev):
 
 
 def j2k_failure_phase(streams):
-    """A failing device stage raises out of Decoder.decode; no other decoder
-    answers for it."""
+    """A failing device stage raises out of Decoder.decode, whether it fails
+    in the IDWT or in the plugin's narrowing of the decoded CUDA tensor; no
+    other decoder answers for it."""
+    import numpy as np
+
     import nvimagecodec_tpu_torch as nic
+    from nvimagecodec_tpu_torch.codecs import jpeg2000 as j2k_plugin
     from nvimagecodec_tpu_torch.codecs import system_codecs
     from nvimagecodec_tpu_torch.codecs.jpeg2000 import core as j2k_core
     from nvimagecodec_tpu_torch.ops import dwt as dwt_ops
+    from util import make_photo
 
     def broken(*args, **kwargs):
         raise RuntimeError("forced failure of the device stage")
 
+    deep = make_photo(512, 512, seed=11).astype(np.uint16) * 257
+    cases = [
+        (dwt_ops, "idwt2d", list(streams)),
+        (j2k_plugin, "widen_uint16",
+         [j2k_core.encode_j2k(deep, reversible=True, levels=5)]),
+    ]
     answered = []
-    real_idwt = dwt_ops.idwt2d
     real_opj = system_codecs.OpjJpeg2kDecoder.decode_batch
-    dwt_ops.idwt2d = broken
     system_codecs.OpjJpeg2kDecoder.decode_batch = (
         lambda self, *a: answered.append(a))
-    raised = None
     try:
-        nic.Decoder(device="cuda").decode(list(streams))
-    except j2k_core.J2kDeviceStageError as e:
-        raised = e
+        for module, name, batch in cases:
+            real = getattr(module, name)
+            setattr(module, name, broken)
+            raised = None
+            try:
+                nic.Decoder(device="cuda").decode(batch)
+            except j2k_core.J2kDeviceStageError as e:
+                raised = e
+            finally:
+                setattr(module, name, real)
+            if raised is None:
+                raise RuntimeError(f"j2k failure: Decoder.decode did not "
+                                   f"raise with {name} broken")
     finally:
-        dwt_ops.idwt2d = real_idwt
         system_codecs.OpjJpeg2kDecoder.decode_batch = real_opj
-    if raised is None:
-        raise RuntimeError("j2k failure: Decoder.decode did not raise")
     if answered:
         raise RuntimeError("j2k failure: system_openjpeg_decoder answered")
-    phase("j2k_failure", f"forced device-stage failure raised "
-          f"{type(raised).__name__} out of Decoder.decode; "
+    phase("j2k_failure", "forced device-stage failures (in idwt2d; in the "
+          "uint16 narrowing of the decoded CUDA tensor) each raised "
+          "J2kDeviceStageError out of Decoder.decode; "
           "system_openjpeg_decoder was not called")
 
 

@@ -53,10 +53,7 @@ def _from_i32(v: torch.Tensor, like: torch.dtype) -> torch.Tensor:
     return v.to(like)
 
 
-def _finish(img, sycc: bool, narrow: bool):
-    """sYCC → RGB and the `>> 8` narrowing, on the tensor where it lives; a
-    numpy image of the host path comes back as numpy."""
-    t = torch.from_numpy(img) if isinstance(img, np.ndarray) else img
+def _finish_tensor(t: torch.Tensor, sycc: bool, narrow: bool) -> torch.Tensor:
     if sycc and t.dim() == 3 and t.shape[2] == 3:
         maxv = 65535 if t.dtype == torch.uint16 else 255
         w = widen_uint16(t)
@@ -65,7 +62,22 @@ def _finish(img, sycc: bool, narrow: bool):
         t = _from_i32(torch.stack([r, g, b], dim=-1), t.dtype)
     if narrow and t.dtype == torch.uint16:
         t = (widen_uint16(t) >> 8).to(torch.uint8)
-    return t.numpy() if isinstance(img, np.ndarray) else t
+    return t
+
+
+def _finish(img, sycc: bool, narrow: bool):
+    """sYCC → RGB and the `>> 8` narrowing, on the tensor where it lives; a
+    numpy image of the host path comes back as numpy. A tensor is the device
+    stage's output, so a failure on it is a J2kDeviceStageError like any
+    other of that stage."""
+    if isinstance(img, np.ndarray):
+        return _finish_tensor(torch.from_numpy(img), sycc, narrow).numpy()
+    try:
+        return _finish_tensor(img, sycc, narrow)
+    except Exception as e:
+        raise J2kDeviceStageError(
+            f"J2K device pixel stage failed on {img.device}: "
+            f"{type(e).__name__}: {e}") from e
 
 
 class Jpeg2kHybridCudaDecoder(DecoderPlugin):

@@ -708,6 +708,19 @@ def device_route_auto(npixels: int, device) -> bool:
             and npixels >= DEVICE_STAGE_MIN_PIXELS)
 
 
+def _upload_buffer(n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """A zeroed host buffer of n elements, pinned for a CUDA device. Pinning
+    goes through the CUDA runtime, so its failure is the device stage's."""
+    if device.type != "cuda":
+        return torch.zeros(n, dtype=dtype)
+    try:
+        return torch.zeros(n, dtype=dtype, pin_memory=True)
+    except Exception as e:
+        raise J2kDeviceStageError(
+            f"J2K device pixel stage failed on {device}: pinned upload "
+            f"buffer: {type(e).__name__}: {e}") from e
+
+
 class _SubbandStage:
     """All subbands of one tile, or of every tile of a uniform grid, in ONE
     host buffer (pinned for a CUDA device) that goes up in one copy.
@@ -725,8 +738,7 @@ class _SubbandStage:
         self.offs = [0]
         for n in sizes:
             self.offs.append(self.offs[-1] + n)
-        self.flat = torch.zeros(self.offs[-1], dtype=dtype,
-                                pin_memory=device.type == "cuda")
+        self.flat = _upload_buffer(self.offs[-1], dtype, device)
         flat_np = self.flat.numpy()
         self.leaves = [flat_np[self.offs[i]:self.offs[i + 1]].reshape(sh)
                        for i, sh in enumerate(self.shapes)]
@@ -838,7 +850,8 @@ def _roi_needed_rect(r: int, levels: int, ay0: int, ax0: int, ay1: int,
 def decode_j2k(
     data: bytes,
     num_threads: int = 0,
-    device=None,
+    *,
+    device,
     discard_levels: int = 0,
     region=None,
     planar: bool = False,
@@ -866,7 +879,8 @@ def decode_j2k(
     entropy-decoded. Returns exactly the region. Bit-identical to cropping a
     full decode.
 
-    device: None keeps the pixel stage on the host and returns numpy. A
+    device (the caller always names it): None keeps the pixel stage on the
+    host and returns numpy. A
     torch.device asks for the device pixel stage: a single-tile stream, or a
     uniform tile grid (no offsets, the image a whole number of tiles, tile
     sides multiples of 2^levels so every tile has the same subband

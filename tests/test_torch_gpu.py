@@ -576,7 +576,7 @@ def test_j2k_device_stage_gpu_vs_cpu(cuda, name):
     img = (make_photo(333, 517, seed=3) if name == "odd_size"
            else make_photo(256, 384, seed=3))
     data = j2k.encode_j2k(img, stream_type="j2k", **kw)
-    host = j2k.decode_j2k(data)
+    host = j2k.decode_j2k(data, device=None)
     before = dict(j2k.ROUTES)
     got = j2k.decode_j2k(data, device=cuda)
     assert got.is_cuda and got.dtype == torch.uint8 and got.is_contiguous()
@@ -665,6 +665,27 @@ def test_j2k_device_failure_raises_on_gpu(cuda, monkeypatch):
     monkeypatch.setattr(dwt_ops, "idwt2d", boom)
     with pytest.raises(j2k.J2kDeviceStageError, match="launch failed"):
         port.Decoder(device="cuda").decode([data, data])
+
+
+def test_j2k_failure_on_the_decoded_cuda_tensor_raises(cuda, monkeypatch):
+    """The plugin's narrowing runs on the decoded CUDA tensor: its failure
+    is the device stage's and is raised, not answered by another decoder."""
+    from nvimagecodec_tpu_torch.codecs import jpeg2000 as j2k_plugin
+    from nvimagecodec_tpu_torch.codecs import system_codecs
+
+    deep = make_photo(512, 512, seed=1).astype(np.uint16) * 257
+    data = j2k.encode_j2k(deep, reversible=True)
+
+    def boom(*a, **k):
+        raise RuntimeError("CUDA error: launch failed")
+
+    answered = []
+    monkeypatch.setattr(j2k_plugin, "widen_uint16", boom)
+    monkeypatch.setattr(system_codecs.OpjJpeg2kDecoder, "decode_batch",
+                        lambda self, *a: answered.append(a))
+    with pytest.raises(j2k.J2kDeviceStageError, match="launch failed"):
+        port.Decoder(device="cuda").decode([data, data])
+    assert answered == []
 
 
 def test_j2k_encoder_gpu_takes_cuda_tensors(cuda):

@@ -170,7 +170,7 @@ def test_encode_j2k_bytes_equal_reference(name):
 def test_decode_j2k_host_path_equals_reference(name):
     img, a, _b = _both(name)
     want = ref_core.decode_j2k(a)
-    got = port_core.decode_j2k(a)
+    got = port_core.decode_j2k(a, device=None)
     assert not isinstance(got, torch.Tensor)
     _same(want, got)
     kw = ENCODES[name][1]
@@ -185,7 +185,7 @@ def test_decode_j2k_host_path_equals_reference(name):
 def test_decode_j2k_planar_equals_reference(name):
     _img, a, _b = _both(name)
     _same(ref_core.decode_j2k(a, planar=True),
-          port_core.decode_j2k(a, planar=True))
+          port_core.decode_j2k(a, planar=True, device=None))
 
 
 @pytest.mark.parametrize("fname", HT_STREAMS)
@@ -193,7 +193,7 @@ def test_htj2k_corpus_decodes_like_reference(fname):
     with open(os.path.join(HTJ2K, fname), "rb") as f:
         data = f.read()
     want = ref_core.decode_j2k(data)
-    _same(want, port_core.decode_j2k(data))
+    _same(want, port_core.decode_j2k(data, device=None))
     got = port_core.decode_j2k(data, device=CPU)
     dev = got.numpy() if isinstance(got, torch.Tensor) else got
     assert dev.dtype == want.dtype and dev.shape == want.shape
@@ -208,7 +208,7 @@ def test_htj2k_corpus_decodes_like_reference(fname):
 def test_discard_levels_equal_reference(name, discard):
     _img, a, _b = _both(name)
     _same(ref_core.decode_j2k(a, discard_levels=discard),
-          port_core.decode_j2k(a, discard_levels=discard))
+          port_core.decode_j2k(a, discard_levels=discard, device=None))
 
 
 @pytest.mark.parametrize("name", ["reversible", "irreversible_q80",
@@ -219,7 +219,7 @@ def test_region_decode_equals_reference(name):
     rg_ref = ref.Region(17, 23, 70, 101)
     rg = port.Region(17, 23, 70, 101)
     want = ref_core.decode_j2k(a, region=rg_ref)
-    _same(want, port_core.decode_j2k(a, region=rg))
+    _same(want, port_core.decode_j2k(a, region=rg, device=None))
     # a region keeps the pixel stage on the host even when a device is named
     got = port_core.decode_j2k(a, region=rg, device=CPU)
     assert not isinstance(got, torch.Tensor)
@@ -362,7 +362,7 @@ def test_device_stage_failure_is_its_own_exception(monkeypatch):
     with pytest.raises(port_core.J2kDeviceStageError, match="illegal"):
         port_core.decode_j2k(a, device=CPU)
     # the host path does not go through ops/dwt for 5/3 and still decodes
-    assert np.array_equal(port_core.decode_j2k(a), _img)
+    assert np.array_equal(port_core.decode_j2k(a, device=None), _img)
     assert not issubclass(port_core.J2kDeviceStageError, ValueError)
 
 
@@ -643,7 +643,7 @@ def test_corrupt_stream_gives_a_none_slot():
         assert [o is None for o in out] == [o is None for o in ref_out]
         assert out[0] is not None and out[2] is None
     with pytest.raises(ValueError):
-        port_core.decode_j2k(junk)
+        port_core.decode_j2k(junk, device=None)
 
 
 def _rejected_stream():
@@ -752,6 +752,67 @@ def test_a_host_failure_beside_a_device_failure_still_raises(monkeypatch):
         port.Decoder(device="cpu", options=(
             "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=true")).decode(
                 [junk, good])
+
+
+@pytest.mark.parametrize("broken", ["ycbcr_to_rgb_i32", "widen_uint16"])
+def test_a_failure_after_the_idwt_is_a_device_stage_error(broken,
+                                                          monkeypatch):
+    """The sYCC conversion and the `>> 8` narrowing run on the device
+    stage's tensor: their failure is raised too, and no other decoder
+    answers it."""
+    if broken == "ycbcr_to_rgb_i32":
+        img = _photo(64, 80, 5)
+        data = port_core.encode_j2k(img, reversible=True, levels=2,
+                                    colorspace="sycc")
+    else:
+        data = _jp2("uint16")
+    good = _jp2("gray")
+
+    def boom(*args, **kw):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    opj_calls = []
+    monkeypatch.setattr(port_j2k, broken, boom)
+    monkeypatch.setattr(port_sys.OpjJpeg2kDecoder, "decode_batch",
+                        lambda self, *a: opj_calls.append(a))
+    dec = port.Decoder(device="cpu", options=(
+        "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=true"))
+    before = dict(port_core.ROUTES)
+    for batch in (data, [good, data]):
+        with pytest.raises(port_core.J2kDeviceStageError, match="illegal"):
+            dec.decode(batch)
+    with pytest.raises(port_core.J2kDeviceStageError, match="illegal"):
+        dec.decode_async([data, good]).wait_all(timeout=60)
+    assert _routes_delta(before) == {"device": 5}  # the stage itself ran
+    assert opj_calls == []
+    # the same operation on a numpy image of the host path is the host
+    # stage's: that sample fails alone
+    host = port.Decoder(device="cpu", options=(
+        "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=false"))
+    out = host.decode([good, data])
+    assert out[0] is not None and out[1] is None
+
+
+def test_a_failed_pinned_allocation_is_a_device_stage_error(monkeypatch):
+    """The upload buffer of a CUDA device is pinned through the CUDA
+    runtime inside the host stage: its failure is the device stage's."""
+    real = torch.zeros
+
+    def zeros(*args, pin_memory=False, **kw):
+        if pin_memory:
+            raise RuntimeError("CUDA error: out of memory")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(port_core.torch, "zeros", zeros)
+    a = _jp2("reversible_j2k")
+    with pytest.raises(port_core.J2kDeviceStageError, match="pinned.*out of"):
+        port_core.decode_j2k(a, device=torch.device("cuda"))
+    dec = port_j2k.Jpeg2kHybridCudaDecoder()
+    dec.set_options({"device": "cuda", "device_pixel_stage": "true"})
+    with pytest.raises(port_core.J2kDeviceStageError, match="pinned"):
+        dec.decode_batch([a, a], [None, None], port.DecodeParams())
+    # a CPU device pins nothing
+    assert isinstance(port_core.decode_j2k(a, device=CPU), torch.Tensor)
 
 
 # ------------------------------------------------------ mixed devices

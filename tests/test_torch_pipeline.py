@@ -45,13 +45,31 @@ def test_depth_equals_unpipelined_decode(batches, unpipelined, depth):
             assert torch.equal(a.array, b.array)  # exact
 
 
+def _reference_decode(batch):
+    """The reference's decode of `batch`, as it gives it twice running. On
+    a loaded machine the reference's JPEG decoder now and then hands out a
+    whole batch that is not its own (about one decode in a thousand, off by
+    over 100, with none of the port's code in the process)."""
+    dec = ref.Decoder()
+    last = [np.asarray(x).astype(int) for x in dec.decode(batch)]
+    for _ in range(4):
+        again = [np.asarray(x).astype(int) for x in dec.decode(batch)]
+        if all(np.array_equal(x, y) for x, y in zip(last, again)):
+            return again
+        last = again
+    raise AssertionError("the reference's decode does not settle")
+
+
 def test_matches_reference_pipeline(batches):
     mine = decode_batches(batches, decoder=port.Decoder(device="cpu"))
     theirs = ref_decode_batches(batches, decoder=ref.Decoder())
-    for a_batch, b_batch in zip(mine, theirs):
-        for a, b in zip(a_batch, b_batch):
-            d = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
-            assert d.max() <= 1  # the float decode's bar
+    for batch, a_batch, b_batch in zip(batches, mine, theirs):
+        for a, b, c in zip(a_batch, b_batch, _reference_decode(batch)):
+            a, b = np.asarray(a).astype(int), np.asarray(b).astype(int)
+            assert np.abs(a - c).max() <= 1  # the float decode's bar
+            # and the pipeline's image, wherever it is the reference's own
+            if np.array_equal(b, c):
+                assert np.abs(a - b).max() <= 1
 
 
 @pytest.mark.parametrize("depth", [1, 2])
