@@ -31,7 +31,20 @@ kernels (launch counts set to 0 just before the path, read just after):
   JAX package has none there either), equal to the photos and to the CPU
   decode; then a uniform and a partial tile grid, 9/7, 16-bit, gray, HT and
   the committed HTJ2K streams, a J2K encode of a CUDA tensor, and a forced
-  failure of the device stage, which must raise and reach no other decoder.
+  failure of the device stage, which must raise and reach no other decoder;
+- mesh path: `Decoder(mesh=make_mesh())` over every visible card
+  equals `Decoder()`; a dp=2 mesh of cuda:0 twice decodes the main and dri
+  corpora bit-exactly to the unsharded decode with K2 once and K1 three
+  times a shard (each held against its plain version on a shard's own
+  inputs); the 1024x1024 J2K stream over sp=2 and sp=4 (rows, halo rows
+  copied between shards) and its 16-tile grid over sp=4 (tiles) equal the
+  unsharded decode; `GenericEncoder(mesh=dp2)` gives the unsharded bytes,
+  and an image encoded alone the bytes it gets inside the 256-image batch.
+  One card covers only meshes whose devices repeat that card.
+
+The encode path's fDCT+quant product is the hand-written
+`fdct_quant_blocks` (csrc/fdct.cu), held against its plain version
+(`torch.matmul`) on every launch of the encode and mesh paths.
 
 It checks the images and coefficients against the CPU and the native host
 decoder, holds each kernel against its plain PyTorch version on the card,
@@ -67,6 +80,7 @@ SEEDS = 8
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 K1_GOAL_MS = 0.30  # the three main-path launches together
+MESH_DP = 2  # shards of the mesh path's decode and encode
 K2_GOAL_MS = 0.75  # one bucket of 256 images
 K3_GOAL_MS = 0.65  # the 10 scans of one stream
 PSNR_BAR_DB = 33.0  # a re-encoded image against the tensor it came from
@@ -264,7 +278,8 @@ def main() -> int:
     prog_ips = prog_phase(prog, dev)
 
     # 10) the encode path: the main path's CUDA tensors through the Encoder
-    encode_frame = encode_phase(imgs, dec, params, dev)
+    enc_path = encode_phase(imgs, dec, params, dev)
+    encode_frame = enc_path["frame"]
 
     # 11) the transcode path: pipelined decode, resize on the card, encode
     trans = transcode_phase(jpgs, imgs, dec, params)
@@ -278,7 +293,10 @@ def main() -> int:
     j2k_encode_phase(j2k["photos"][1], dev)
     j2k_failure_phase(j2k["streams"][:2])
 
-    # 14) times (informational; no claim)
+    # 14) the mesh path: dp over the JPEG buckets, sp over J2K rows and tiles
+    mesh = mesh_phase(jpgs, imgs, dec, params, j2k)
+
+    # 15) times (informational; no claim)
     k1_ms = sum(cuda_ms(lambda i, x=x, M=M: dequant_idct_blocks(x, M, 8, True),
                         20) for x, M in k1_in)
     k1_plain_ms = sum(
@@ -338,7 +356,9 @@ def main() -> int:
           f"(x{prog_ips['device'] / prog_ips['host']:.3f})")
 
     encode_times(imgs, jpgs, dec, params, dev, card, encode_frame)
+    fdct = fdct_times(enc_path["fdct_in"], card)
     j2k_times(j2k, dev, card)
+    mesh_times(jpgs, mesh["decoder"], card)
 
     loaded = [m for m in sys.modules
               if m == "jax" or m.split(".")[0] == "nvimagecodec_tpu"]
@@ -350,24 +370,27 @@ def main() -> int:
          "replaces": "nvimagecodec_tpu/ops/pallas_kernels.py:23",
          "launches": launches["K1"],
          "max_abs_err": max(k1_err, dri["k1_err"], prog_ips["k1_err"],
-                            trans["k1_err"]),
+                            trans["k1_err"], mesh["k1_err"]),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
          "bound_by": "bytes" if k1_bytes_ms >= k1_ops_ms else "operations",
          "library_ms": k1_lib_ms,
          "launches_by_path": {"main": launches["K1"],
                               "dri": dri["launches"]["K1"],
                               "prog": prog_ips["launches"]["K1"],
-                              "transcode": trans["launches"]["K1"]}},
+                              "transcode": trans["launches"]["K1"],
+                              "mesh": mesh["launches"]["K1"]}},
         {"name": "K2 decode_segments_into", "route": "cuda",
          "source": "nvimagecodec_tpu_torch/csrc/huffman.cu",
          "replaces": "nvimagecodec_tpu/ops/pallas_entropy.py:120",
-         "launches": launches["K2"], "max_abs_err": max(k2_err, dri["k2_err"],
-                                                         trans["k2_err"]),
+         "launches": launches["K2"],
+         "max_abs_err": max(k2_err, dri["k2_err"], trans["k2_err"],
+                            mesh["k2_err"]),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": "bytes", "library_ms": None,
          "launches_by_path": {"main": launches["K2"],
                               "dri": dri["launches"]["K2"],
-                              "transcode": trans["launches"]["K2"]}},
+                              "transcode": trans["launches"]["K2"],
+                              "mesh": mesh["launches"]["K2"]}},
         {"name": "K3 decode_prog_scan_into", "route": "cuda",
          "source": "nvimagecodec_tpu_torch/csrc/prog_huffman.cu",
          "replaces": "nvimagecodec_tpu/ops/pallas_entropy.py:493",
@@ -376,6 +399,22 @@ def main() -> int:
          "plain_ms": sum(k3["plain_ms"].values()),
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "launches_by_path": {"prog": prog_ips["launches"]["K3"]}},
+        {"name": "fdct_quant_blocks", "route": "cuda",
+         "source": "nvimagecodec_tpu_torch/csrc/fdct.cu",
+         # the fDCT+quant product the JAX package leaves to XLA (no Pallas
+         # kernel there)
+         "replaces": "nvimagecodec_tpu/codecs/jpeg/encode.py:187",
+         "launches": enc_path["launches"]["FDCT"],
+         "max_abs_err": max(enc_path["fdct_err"], trans["fdct_err"],
+                            mesh["fdct_err"]),
+         "max_share_differing": max(enc_path["fdct_share"],
+                                    trans["fdct_share"], mesh["fdct_share"]),
+         "ms": fdct["ms"], "plain_ms": fdct["plain_ms"],
+         "bound_ms": fdct["bound_ms"], "bound_by": fdct["bound_by"],
+         "library_ms": fdct["library_ms"],
+         "launches_by_path": {"encode": enc_path["launches"]["FDCT"],
+                              "transcode": trans["launches"]["FDCT"],
+                              "mesh": mesh["launches"]["FDCT"]}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -391,6 +430,7 @@ def counts_zero():
     kernels.dequant_idct_blocks.launches = 0
     ek.decode_segments_into.launches = 0
     ek.decode_prog_scan_into.launches = 0
+    kernels.fdct_quant_blocks.launches = 0
 
 
 def counts():
@@ -399,7 +439,8 @@ def counts():
 
     return {"K1": kernels.dequant_idct_blocks.launches,
             "K2": ek.decode_segments_into.launches,
-            "K3": ek.decode_prog_scan_into.launches}
+            "K3": ek.decode_prog_scan_into.launches,
+            "FDCT": kernels.fdct_quant_blocks.launches}
 
 
 @contextlib.contextmanager
@@ -547,6 +588,42 @@ def k1_held(fn):
         return fn(), err[0], sorted(shapes)
     finally:
         pixel.dequant_idct_blocks = real
+
+
+def fdct_held(fn, keep=None):
+    """Run fn() with every fdct_quant_blocks launch of encode_pixels held
+    against fdct_quant_blocks_plain on the same inputs (the plain version
+    launches no kernel); `keep` collects each launch's (samples, matrix).
+    Raises unless the kernel is within 1 of the plain version on fewer than
+    1% of the entries of every launch. Returns (fn's result, max |kernel -
+    plain|, the largest share of entries that differ)."""
+    import threading
+
+    from nvimagecodec_tpu_torch.codecs.jpeg import encode
+    from nvimagecodec_tpu_torch.ops.kernels import fdct_quant_blocks_plain
+
+    real = encode.fdct_quant_blocks
+    st, lock = {"err": 0, "share": 0.0}, threading.Lock()
+
+    def both(x, M):
+        got = real(x, M)
+        d = (got - fdct_quant_blocks_plain(x, M)).abs()
+        with lock:
+            st["err"] = max(st["err"], int(d.max()))
+            st["share"] = max(st["share"], float((d > 0).double().mean()))
+            if keep is not None:
+                keep.append((x, M))
+        return got
+
+    encode.fdct_quant_blocks = both
+    try:
+        out = fn()
+    finally:
+        encode.fdct_quant_blocks = real
+    if st["err"] > 1 or st["share"] >= 0.01:
+        raise RuntimeError(f"fdct_quant_blocks vs plain: max |diff| "
+                           f"{st['err']} on {st['share']:.4%} of entries")
+    return out, st["err"], st["share"]
 
 
 def dri_phase(dec, dev):
@@ -871,8 +948,10 @@ def encode_bucket(name, tensors, params, enc, dec, dev, peak=255.0):
     n = len(tensors)
     copies = []
     routes0 = dict(be.ROUTES)
+    counts_zero()
     with count_host_copies(copies):
         streams = enc.encode(tensors, "jpeg", params)
+    launches = counts()
     routes = {k: be.ROUTES[k] - routes0[k] for k in routes0}
     if routes != {"device": n, "host": 0, "progressive": 0}:
         raise RuntimeError(f"encode path ({name}): routes {routes}")
@@ -881,6 +960,9 @@ def encode_bucket(name, tensors, params, enc, dec, dev, peak=255.0):
                            f"were copied to the host, e.g. {copies[:4]}")
     if any(d is None for d in streams):
         raise RuntimeError(f"encode path ({name}): a sample failed")
+    if launches["FDCT"] != len(frame_of(tensors[0], params).components):
+        raise RuntimeError(f"encode path ({name}): launches {launches}, "
+                           "expected one fdct_quant_blocks a component")
     back = dec.decode(streams, nic.DecodeParams(allow_any_depth=peak > 255))
     worst = math.inf
     for j, (t, im) in enumerate(zip(tensors, back)):
@@ -907,17 +989,29 @@ def encode_bucket(name, tensors, params, enc, dec, dev, peak=255.0):
     if diff > 1 or share >= 0.01:
         raise RuntimeError(f"encode path ({name}): coefficients on the card "
                            f"differ from the CPU's by {diff} on {share:.4%}")
-    return streams, frame, (
+    return streams, frame, launches, (
         f"{name}: {n}/{n} via the device route, no host copy of an image, "
-        f"decode again to PSNR >= {worst:.2f} dB, card vs CPU coefficients "
-        f"max |diff| {diff} on {share:.4%} of entries")
+        f"launches {launches}, decode again to PSNR >= {worst:.2f} dB, card "
+        f"vs CPU coefficients max |diff| {diff} on {share:.4%} of entries")
+
+
+def frame_of(tensor, params):
+    """The encode frame of a bucket of such tensors."""
+    import torch
+
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
+
+    deep = tensor.dtype == torch.uint16
+    return be.bucket_frame(tuple(tensor.shape), params, 12 if deep else 8)
 
 
 def encode_phase(imgs, dec, params, dev):
     """The main path's decoded images, CUDA tensors, through
     `Encoder(device="cuda")` with the GPU backend only: the full 4:2:0
-    bucket, then 8-image 4:4:4, 4:2:2, gray and 12-bit (uint16) buckets.
-    Returns the main bucket's frame."""
+    bucket, then 8-image 4:4:4, 4:2:2, gray and 12-bit (uint16) buckets,
+    fdct_quant_blocks held against its plain version on every launch.
+    Returns the main bucket's frame, its launch counts and the inputs of
+    its fdct_quant_blocks launches."""
     import torch
 
     import nvimagecodec_tpu_torch as nic
@@ -925,11 +1019,13 @@ def encode_phase(imgs, dec, params, dev):
     enc = nic.Encoder(device="cuda",
                       backends=[nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)])
     tensors = [im.array for im in imgs]
-    streams, frame, text = encode_bucket(
-        f"{len(tensors)} x {H}x{W} 4:2:0 q{QUALITY}", tensors, params, enc,
-        dec, dev)
+    keep = []
+    (streams, frame, launches, text), f_err, f_share = fdct_held(
+        lambda: encode_bucket(f"{len(tensors)} x {H}x{W} 4:2:0 q{QUALITY}",
+                              tensors, params, enc, dec, dev), keep)
     phase("encode_path", text + f"; {sum(map(len, streams)) // len(streams)}"
-          " B mean")
+          f" B mean; fdct_quant_blocks vs plain on every launch max |diff| "
+          f"{f_err} on {f_share:.4%} of entries")
 
     def with_css(css):
         return nic.EncodeParams(
@@ -945,10 +1041,14 @@ def encode_phase(imgs, dec, params, dev):
             ("gray", [t[..., 0].contiguous() for t in few], with_css(None),
              255.0),
             ("12-bit 4:2:0 (uint16)", deep, params, 4095.0)]:
-        _s, _f, text = encode_bucket(f"{len(bucket)} x {name}", bucket, p,
-                                     enc, dec, dev, peak)
+        (_s, _f, _l, text), err, share = fdct_held(
+            lambda: encode_bucket(f"{len(bucket)} x {name}", bucket, p, enc,
+                                  dec, dev, peak))
+        f_err, f_share = max(f_err, err), max(f_share, share)
         phase("encode_path", text)
-    return frame
+    # the main encode's three launches come first (the checks follow it)
+    return {"frame": frame, "launches": launches, "fdct_err": f_err,
+            "fdct_share": f_share, "fdct_in": keep[:len(frame.components)]}
 
 
 def transcode_batches(jpgs):
@@ -999,12 +1099,14 @@ def transcode_phase(jpgs, imgs, dec, params):
     routes0 = dict(be.ROUTES)
     counts_zero()
     with no_plain_versions():
-        streams, k1_err, _shapes = k1_held(
-            lambda: transcode_once(jpgs, dec, enc, params, keep))
+        (streams, k1_err, _shapes), f_err, f_share = fdct_held(
+            lambda: k1_held(
+                lambda: transcode_once(jpgs, dec, enc, params, keep)))
         torch.cuda.synchronize()
     launches = counts()
     n = TRANSCODE_BATCHES * TRANSCODE_BATCH
-    want = {"K1": 3 * TRANSCODE_BATCHES, "K2": TRANSCODE_BATCHES, "K3": 0}
+    want = {"K1": 3 * TRANSCODE_BATCHES, "K2": TRANSCODE_BATCHES, "K3": 0,
+            "FDCT": 3 * TRANSCODE_BATCHES}
     if launches != want:
         raise RuntimeError(f"transcode path: launches {launches}, expected "
                            f"{want}")
@@ -1053,10 +1155,12 @@ def transcode_phase(jpgs, imgs, dec, params):
           f"|diff| {k1_err}; K2 bit-exact vs plain on this path's "
           f"{TRANSCODE_BATCH}-image idx bucket (words "
           f"{tuple(k2_args[0].shape)}; stacks and err, max |diff| {k2_err}); "
+          f"fdct_quant_blocks vs plain max |diff| {f_err} on {f_share:.4%}; "
           f"resize to {TRANSCODE_HW}x{TRANSCODE_HW} on the "
           f"card within {diffs} of the CPU's; {n}/{n} encoded via the device "
           f"route, decode again to PSNR >= {worst:.2f} dB")
-    return {"launches": launches, "k1_err": k1_err, "k2_err": k2_err}
+    return {"launches": launches, "k1_err": k1_err, "k2_err": k2_err,
+            "fdct_err": f_err, "fdct_share": f_share}
 
 
 def cli_phase(uniq, dec):
@@ -1183,6 +1287,216 @@ def encode_times(imgs, jpgs, dec, params, dev, card, frame):
           f"({d2h_bytes / d2h_ms / 1e6:.2f} GB/s); transcode path "
           f"(decode_batches depth 2, resize {TRANSCODE_HW}x{TRANSCODE_HW}, "
           f"encode) {trans_ips:.1f} images/s")
+
+
+def fdct_times(f_in, card):
+    """fdct_quant_blocks at the encode path's shapes (the main bucket's three
+    components), CUDA events: beside its plain version, `torch.matmul` of the
+    same product (the library call, used nowhere in the port) and its bound,
+    the larger of the bytes (samples read, int32 coefficients written, the
+    matrix, once each over 3.35 TB/s) and 2 * 64 * 64 fp32 operations a block
+    over 67 TFLOP/s."""
+    import torch
+
+    from nvimagecodec_tpu_torch.ops.kernels import (
+        fdct_quant_blocks,
+        fdct_quant_blocks_plain,
+    )
+
+    ms = sum(cuda_ms(lambda i, x=x, M=M: fdct_quant_blocks(x, M), 20)
+             for x, M in f_in)
+    plain_ms = sum(cuda_ms(lambda i, x=x, M=M: fdct_quant_blocks_plain(x, M),
+                           5) for x, M in f_in)
+    lib_ms = 0.0
+    for x, M in f_in:
+        mt = M.T.contiguous()
+        lib_ms += cuda_ms(lambda i, x=x, mt=mt: torch.matmul(x, mt), 20)
+    blocks = sum(x.numel() // 64 for x, _ in f_in)
+    bytes_ms = (sum(bytes_bound_ms(x, M) for x, M in f_in)
+                + blocks * 64 * 4 / HBM_BYTES_PER_S * 1e3)
+    ops_ms = blocks * 2 * 64 * 64 / FP32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    phase("times", f"on {card}: fdct_quant_blocks at the encode path's "
+          f"shapes ({', '.join(str(tuple(x.shape)) for x, _ in f_in)}; "
+          f"{blocks} blocks) {ms:.4f} ms for the 3 launches together; "
+          f"torch.matmul {lib_ms:.4f}; plain {plain_ms:.4f}; bound "
+          f"{bound_ms:.4f}, bytes {bytes_ms:.4f} / operations {ops_ms:.4f}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def same_images(got, want, label):
+    """Every image of `got` on the card and equal to the one of `want`."""
+    import torch
+
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a is None or not a.array.is_cuda or not torch.equal(a.array,
+                                                               b.array):
+            raise RuntimeError(f"{label}: image {j} differs from the "
+                               "unsharded decode")
+    if len(got) != len(want):
+        raise RuntimeError(f"{label}: {len(got)} images for {len(want)}")
+
+
+def mesh_phase(jpgs, imgs, dec, params, j2k):
+    """The multi-device layer on the card: meshes of the visible cards,
+    and of cuda:0 repeated (one card holds only such meshes; a shard on the
+    same device as another is a shard all the same). Returns the phase's
+    numbers and its dp=2 decoder."""
+    import torch
+
+    import nvimagecodec_tpu_torch as nic
+    import torch_corpus
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
+    from nvimagecodec_tpu_torch.codecs.jpeg2000.core import encode_j2k
+    from nvimagecodec_tpu_torch.core import trace
+    from nvimagecodec_tpu_torch.core.scheduler import GenericEncoder
+    from nvimagecodec_tpu_torch.parallel.mesh import make_mesh
+
+    hybrid = [nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)]
+    cuda0 = torch.device("cuda", 0)
+
+    # 1) the mesh of every visible card
+    full = make_mesh()
+    same_images(nic.Decoder(mesh=full, backends=hybrid).decode(jpgs), imgs,
+                "Decoder(mesh=make_mesh())")
+    phase("mesh", f"make_mesh() here: shape {full.shape}, devices "
+          f"{[str(d) for d in full.flat_devices()]}, torch.cuda.device_count()"
+          f" {torch.cuda.device_count()}; Decoder(mesh=make_mesh()) equals "
+          f"Decoder() on all {BATCH} main-path images")
+
+    # 2) dp=2 over cuda:0 twice: main and dri corpora, K2 and K1 a shard
+    dp2 = make_mesh(dp=MESH_DP, devices=[cuda0] * MESH_DP)
+    mdec = nic.Decoder(mesh=dp2, backends=hybrid)
+    dri_uniq = torch_corpus.dri_streams()
+    dri_jpgs = [dri_uniq[i % SEEDS] for i in range(BATCH)]
+    out = {"decoder": mdec, "k1_err": 0, "k2_err": 0}
+    texts = []
+    for name, streams, route in (("main", jpgs, "idx"),
+                                 ("dri", dri_jpgs, "dri")):
+        want = imgs if name == "main" else dec.decode(streams)
+        routes0 = dict(jb.ROUTES)
+        counts_zero()
+        with no_plain_versions():
+            got, k1_err, shapes = k1_held(lambda: mdec.decode(streams))
+            torch.cuda.synchronize()
+        launches = counts()
+        routes = {k: jb.ROUTES[k] - routes0[k] for k in routes0}
+        if launches != {"K1": 3 * MESH_DP, "K2": MESH_DP, "K3": 0,
+                        "FDCT": 0}:
+            raise RuntimeError(f"mesh {name}: launches {launches}, expected "
+                               f"K2 once and K1 three times a shard")
+        expect = dict.fromkeys(routes0, 0)
+        expect[route] = BATCH
+        if routes != expect:
+            raise RuntimeError(f"mesh {name}: routes {routes}")
+        if k1_err > 1:
+            raise RuntimeError(f"mesh {name}: K1 vs plain {k1_err} > 1")
+        same_images(got, want, f"mesh {name} (dp={MESH_DP})")
+        # K2 on the first shard's own inputs: the bucket's first half
+        frames = {i: jb.parse_jpeg_structure(d) for i, d in enumerate(streams)}
+        k2_err = k2_held(route, frames, dict(enumerate(streams)),
+                         BATCH // MESH_DP, cuda0)[0]
+        out["k1_err"] = max(out["k1_err"], k1_err)
+        out["k2_err"] = max(out["k2_err"], k2_err)
+        if name == "main":
+            out["launches"] = launches
+        texts.append(f"{name}: {BATCH}/{BATCH} equal the unsharded decode, "
+                     f"route {route}, launches {launches}, K1 vs plain on "
+                     f"every launch (shapes {shapes}) max |diff| {k1_err}, K2 "
+                     f"bit-exact vs plain on shard 0's {BATCH // MESH_DP} "
+                     "streams")
+    phase("mesh", f"dp={MESH_DP} over cuda:0 twice: " + "; ".join(texts))
+
+    # 3) J2K: one tile's rows over sp=2 and 4, the 16-tile grid over sp=4
+    photo = j2k["photos"][0]
+    single = j2k["streams"][0]
+    tiled = encode_j2k(photo, reversible=True, levels=J2K_LEVELS,
+                       tile_size=256)
+    notes = []
+    for data, sp, what in ((single, 2, "rows"), (single, 4, "rows"),
+                           (tiled, 4, "tiles")):
+        want = dec.decode(data)
+        sdec = nic.Decoder(mesh=make_mesh(dp=1, sp=sp, devices=[cuda0] * sp),
+                           backends=hybrid)
+        trace.start_collect()
+        with no_host_idwt():
+            got = sdec.decode(data)
+            torch.cuda.synchronize()
+        seen = trace.stop_collect()["counters"]
+        key = "row_shards" if what == "rows" else "tile_shards"
+        if seen.get(f"imgcodec.jpeg2k.{key}") != sp:
+            raise RuntimeError(f"mesh j2k {what} sp={sp}: counters {seen}")
+        same_images([got], [want], f"mesh j2k {what} sp={sp}")
+        if not torch.equal(got.array.cpu(), torch.from_numpy(photo)):
+            raise RuntimeError(f"mesh j2k {what} sp={sp}: not the photo")
+        notes.append(f"{what} over sp={sp}: {sp} shards, equal to the "
+                     "unsharded decode and the photo")
+    phase("mesh", f"J2K lossless {J2K_HW}x{J2K_HW}x3, {J2K_LEVELS} levels: "
+          + "; ".join(notes) + "; no host IDWT ran")
+
+    # 4) encode: sharded and alone give the unsharded bytes
+    tensors = [im.array for im in imgs]
+    enc = nic.Encoder(device="cuda", backends=hybrid)
+    want = enc.encode(tensors, "jpeg", params)
+    genc = GenericEncoder(registry=nic.port_registry(), backends=hybrid,
+                          mesh=dp2)
+    counts_zero()
+    res, f_err, f_share = fdct_held(lambda: genc.encode_batch(
+        tensors, [None] * BATCH, "jpeg", params))
+    out["launches"]["FDCT"] = counts()["FDCT"]
+    if out["launches"]["FDCT"] != 3 * MESH_DP:
+        raise RuntimeError(f"mesh encode: {out['launches']['FDCT']} "
+                           "fdct_quant_blocks launches, expected 3 a shard")
+    got = [r.data for r in res]
+    differ = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+    if differ or None in want:
+        raise RuntimeError(f"mesh encode: {len(differ)} streams differ from "
+                           f"the unsharded encode, e.g. {differ[:4]}")
+    alone = [j for j in range(SEEDS)
+             if enc.encode(tensors[j], "jpeg", params) != want[j]]
+    if alone:
+        raise RuntimeError(f"encoded alone, images {alone} differ from their "
+                           f"bytes in the {BATCH}-image batch")
+    out["fdct_err"], out["fdct_share"] = f_err, f_share
+    phase("mesh", f"GenericEncoder(mesh=dp{MESH_DP}): {BATCH}/{BATCH} "
+          f"streams equal the unsharded encode's bytes, "
+          f"{out['launches']['FDCT']} fdct_quant_blocks launches (vs plain "
+          f"max |diff| {f_err} on {f_share:.4%}); each of the {SEEDS} "
+          f"distinct images encoded alone gives its bytes in the {BATCH}-image"
+          " batch")
+    return out
+
+
+def mesh_times(jpgs, mdec, card):
+    """Informational: Decoder(mesh=dp2 on one card) images/s beside the
+    unsharded Decoder on the main corpus, alternated within this call."""
+    import torch
+
+    import nvimagecodec_tpu_torch as nic
+
+    un = nic.Decoder(device="cuda",
+                     backends=[nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)])
+
+    def rate(d, reps=3):
+        d.decode(jpgs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            d.decode(jpgs)
+        torch.cuda.synchronize()
+        return reps * BATCH / (time.perf_counter() - t0)
+
+    ips = {"unsharded": [], "dp2": []}
+    for name, d in (("unsharded", un), ("dp2", mdec), ("dp2", mdec),
+                    ("unsharded", un)):
+        ips[name].append(rate(d))
+    phase("times", f"on {card}: Decoder.decode of the {BATCH} main-path "
+          f"streams, images/s, order unsharded, dp{MESH_DP}, dp{MESH_DP}, "
+          f"unsharded: unsharded {ips['unsharded'][0]:.1f} / "
+          f"{ips['unsharded'][1]:.1f}, Decoder(mesh=dp{MESH_DP} over cuda:0 "
+          f"twice) {ips['dp2'][0]:.1f} / {ips['dp2'][1]:.1f}")
 
 
 def j2k_routes():

@@ -112,6 +112,8 @@ def _declare(L: ctypes.CDLL) -> None:
     L.tic_idct_blocks.argtypes = [vp, i32, i32, vp, vp, i64, ctypes.c_float,
                                   i32, vp]
     L.tic_idct_blocks.restype = i32
+    L.tic_fdct_quant_blocks.argtypes = [vp, vp, vp, i64, vp]
+    L.tic_fdct_quant_blocks.restype = i32
     i32p = ctypes.POINTER(ctypes.c_int32)
     vpp = ctypes.POINTER(vp)
     L.tic_huffman_decode_into.argtypes = [

@@ -7,8 +7,10 @@ there. Other formats, and the J2K streams that keep their pixel stage on the
 host (ROI, a partial tile grid, discard_levels, small images), decode on the
 host and come back as CPU tensors, so a mixed batch may lie on two devices:
 `decode(..., to_device=True)` puts every returned image on the decoder's
-device (the counterpart of the reference's `to_tpu`). Failed samples come
-back as None. EXIF orientation, ROI crop, GRAY and sample-format/type
+device (the counterpart of the reference's `to_tpu`). `Decoder(mesh=...)`
+shards the device stages over a `parallel.mesh.Mesh`: JPEG buckets over
+"dp", J2K tiles or rows over "sp"; each image comes back on the device that
+decoded it. Failed samples come back as None. EXIF orientation, ROI crop, GRAY and sample-format/type
 conversion follow the reference (api.py:97-151). `Encoder(device=...)`
 encodes JPEG with the pixel stage on that device and takes images that live
 there as they are; other formats, JPEG2000 among them, encode on the host.
@@ -68,8 +70,13 @@ class Decoder:
     def __init__(self, device="cuda",
                  backends: Optional[Sequence[Backend]] = None,
                  options: str = "", max_num_cpu_threads: int = 0,
-                 registry: Optional[CodecRegistry] = None, executor=None):
-        self.device = torch.device(device)
+                 registry: Optional[CodecRegistry] = None, executor=None,
+                 mesh=None):
+        """`mesh`: optional parallel.mesh.Mesh. The JPEG and J2K device
+        stages shard over it, and the mesh's first device replaces `device`
+        (the device of `to_device=True`)."""
+        self.device = (mesh.first_device if mesh is not None
+                       else torch.device(device))
         # the device reaches the JPEG and J2K plugins as their option; it
         # wins over a device named in `options`
         options = (f"{options} {JpegHybridCudaDecoder.plugin_id}:"
@@ -78,7 +85,7 @@ class Decoder:
         self._generic = GenericDecoder(
             registry=registry or port_registry(), backends=backends,
             options=options, max_num_cpu_threads=max_num_cpu_threads,
-            executor=executor)
+            executor=executor, mesh=mesh)
 
     def decode(self, src, params: Optional[DecodeParams] = None,
                to_device: bool = False):

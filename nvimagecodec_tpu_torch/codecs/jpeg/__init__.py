@@ -177,13 +177,16 @@ class _JpegDecoderBase(DecoderPlugin):
 
 class JpegHybridCudaDecoder(_JpegDecoderBase):
     """Batched decode on `device` (a CUDA device, or the CPU with the
-    kernels' plain versions). Options: device, fancy_upsampling, bitexact."""
+    kernels' plain versions). Options: device, fancy_upsampling, bitexact.
+    `mesh` is set by the scheduler for `Decoder(mesh=...)`: buckets shard
+    over its "dp" devices."""
 
     plugin_id = "cuda_jpeg_hybrid_decoder"
     backend_kind = BackendKind.HYBRID_CPU_GPU
     priority = Priority.HIGH
     fancy_upsampling = True
     device = torch.device("cuda")
+    mesh = None
 
     def set_options(self, opts) -> None:
         self.device = torch.device(opts.get("device", "cuda"))
@@ -197,7 +200,7 @@ class JpegHybridCudaDecoder(_JpegDecoderBase):
 
         return decode_batch_cuda(data_batch, params, self.device,
                                  fancy=self.fancy_upsampling,
-                                 bitexact=self.bitexact)
+                                 bitexact=self.bitexact, mesh=self.mesh)
 
 
 class JpegCpuDecoder(_JpegDecoderBase):
@@ -236,7 +239,9 @@ class JpegHybridCudaEncoder(EncoderPlugin):
     in the chain. Only a sample it rejects in `can_encode` goes on to
     cpu_jpeg_encoder: one whose host stage fails after that fails alone,
     and an error of its device stage raises. Options: device, device_stage
-    (false keeps the whole encode on the host)."""
+    (false keeps the whole encode on the host). `mesh` is set by the
+    scheduler for `GenericEncoder(mesh=...)`: buckets shard over its "dp"
+    devices."""
 
     codec = "jpeg"
     plugin_id = "cuda_jpeg_hybrid_encoder"
@@ -244,6 +249,7 @@ class JpegHybridCudaEncoder(EncoderPlugin):
     priority = Priority.HIGH
     device = torch.device("cuda")
     device_stage = True
+    mesh = None
 
     def set_options(self, opts) -> None:
         self.device = torch.device(opts.get("device", "cuda"))
@@ -256,7 +262,8 @@ class JpegHybridCudaEncoder(EncoderPlugin):
         from .batch_encode import encode_batch_cuda
 
         return encode_batch_cuda(image_batch, params, self.device,
-                                 device_stage=self.device_stage)
+                                 device_stage=self.device_stage,
+                                 mesh=self.mesh)
 
 
 class JpegCpuEncoder(EncoderPlugin):

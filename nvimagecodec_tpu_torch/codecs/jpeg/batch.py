@@ -25,12 +25,20 @@ host route, as the reference's router does.
 On a CPU device every route runs with the kernels' plain versions, which
 is how the tests hold the port against the reference.
 
+With a mesh (`Decoder(mesh=)`), every bucket splits into contiguous shards
+of its samples, one per "dp" device, and each shard takes its route on its
+own device exactly as a bucket of that size would (the reference shards K2's
+lane axis instead; the idx route's lanes are runs of one image's MCU rows,
+so both give the same coefficients). A shard's work runs under
+`torch.cuda.device` of its device and on that device's current stream.
+
 Staging is pinned host memory from PyTorch's caching allocator, reused only
 once the copies that read it have completed. Kernel and device errors raise; a corrupt stream or an index-scan
 reject fails (or re-routes) just that sample.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -43,6 +51,7 @@ from ...core.interfaces import DecodeParams, DecodeResult
 from ...core.trace import span
 from ...core.types import ColorSpec, ProcessingStatus
 from ...ops.entropy_kernels import decode_segments_into, huffman_tables
+from ...parallel.mesh import shard_bounds
 from .device_entropy import (
     decode_progressive_device,
     device_entropy_plan,
@@ -101,6 +110,14 @@ def _fetch(t: torch.Tensor, device):
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(device))
     return host, event
+
+
+def on_device(device: torch.device):
+    """`torch.cuda.device(device)` for a CUDA device: the kernels launch on
+    the CUDA runtime's current device. Nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def _pixel_stage(frame, coefs, zigzag, fancy, to_rgb, to_u8, bitexact):
@@ -279,10 +296,15 @@ def _host_route(idxs, frames, raws, results, fancy, to_rgb, to_u8, bitexact,
 
 def decode_batch_cuda(data_batch, params: DecodeParams, device="cuda",
                       fancy: bool = True, bitexact: bool = False,
-                      device_entropy: bool = True) -> List[DecodeResult]:
-    """Decode a list of JPEG streams on `device`. device_entropy=False keeps
-    every bucket on the host route (how flagged samples are re-issued)."""
+                      device_entropy: bool = True,
+                      mesh=None) -> List[DecodeResult]:
+    """Decode a list of JPEG streams on `device`, or with a mesh over its
+    "dp" devices (each image on the device of its shard). device_entropy=
+    False keeps every bucket on the host route (how flagged samples are
+    re-issued)."""
     device = torch.device(device)
+    shard_devices = (mesh.axis_devices("dp") if mesh is not None
+                     else [device])
     n = len(data_batch)
     results: List[DecodeResult] = [None] * n  # type: ignore[list-item]
     nthreads = min(32, os.cpu_count() or 2)
@@ -320,17 +342,23 @@ def decode_batch_cuda(data_batch, params: DecodeParams, device="cuda",
     to_rgb = not (cs is not None and int(cs) == int(ColorSpec.UNCHANGED))
     to_u8 = not params.allow_any_depth
     checks = []
-    for idxs in groups.values():
-        if device_entropy:
-            left = _try_device_entropy(idxs, frames, raws, results, fancy,
-                                       to_rgb, to_u8, bitexact, device,
-                                       checks)
-            if left is not None:
-                if not left:
-                    continue
-                idxs = left
-        _host_route(idxs, frames, raws, results, fancy, to_rgb, to_u8,
-                    bitexact, device, pool)
+    for group in groups.values():
+        bounds = shard_bounds(len(group), len(shard_devices))
+        for (lo, hi), dev in zip(bounds, shard_devices):
+            if lo == hi:
+                continue
+            idxs = group[lo:hi]
+            with on_device(dev):
+                if device_entropy:
+                    left = _try_device_entropy(idxs, frames, raws, results,
+                                               fancy, to_rgb, to_u8,
+                                               bitexact, dev, checks)
+                    if left is not None:
+                        if not left:
+                            continue
+                        idxs = left
+                _host_route(idxs, frames, raws, results, fancy, to_rgb,
+                            to_u8, bitexact, dev, pool)
 
     # K2's per-lane flags. On the idx route the index scan already walked
     # every symbol, so a flag means the kernel and the scan disagree; on the
@@ -348,7 +376,7 @@ def decode_batch_cuda(data_batch, params: DecodeParams, device="cuda",
     if flagged:
         redo = decode_batch_cuda([data_batch[i] for i in flagged], params,
                                  device, fancy, bitexact,
-                                 device_entropy=False)
+                                 device_entropy=False, mesh=mesh)
         for i, r in zip(flagged, redo):
             results[i] = r
         _count("reissued", len(flagged))

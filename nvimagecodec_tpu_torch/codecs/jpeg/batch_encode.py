@@ -24,6 +24,13 @@ over the pool: the fused native encoder where it covers the sample, else
 the native pixel stage, else `encode_jpeg`. Progressive encodes take the
 per-sample host path too (the multi-scan scheduler is host code).
 
+With a mesh (`GenericEncoder(mesh=)`), every bucket splits into contiguous
+shards of its samples, one per "dp" device: each shard is stacked and runs
+`encode_pixels` on its device, and every shard's coefficients come back to
+the host before the Huffman stage. The card's fDCT+quant product sums in a
+fixed order (ops/kernels.fdct_quant_blocks), so the bytes equal the
+unsharded encode's.
+
 An error of the device stage raises out of `encode_batch_cuda`; a sample of
 an unsupported shape or dtype, or one whose host stage fails, fails alone.
 """
@@ -39,7 +46,8 @@ import torch
 from ...core.interfaces import EncodeParams, EncodeResult, JpegEncodeParams
 from ...core.trace import add_count, span
 from ...core.types import ProcessingStatus
-from .batch import _shared_pool
+from ...parallel.mesh import shard_bounds
+from .batch import _shared_pool, on_device
 from .encode import (
     HuffTable,
     STD_AC_CHROMA,
@@ -80,11 +88,9 @@ def shape_dtype(img):
 
 
 def _lives_on(img, device: torch.device) -> bool:
-    """Whether `img` is a tensor on `device` ("cuda" without an index is any
-    CUDA device)."""
-    return (isinstance(img, torch.Tensor)
-            and img.device.type == device.type
-            and (device.index is None or img.device.index == device.index))
+    """Whether `img` is a tensor of `device`'s type: on the device itself,
+    or on another CUDA device, whence it is copied without the host."""
+    return isinstance(img, torch.Tensor) and img.device.type == device.type
 
 
 def host_array(img) -> np.ndarray:
@@ -217,8 +223,9 @@ def _stack_bucket(images, shape, dt: str, device, pool) -> torch.Tensor:
     rest = images[len(there):]
     parts = []
     if there:
-        parts.append(torch.stack([t.reshape(shape).view(bits)
-                                  for t in there]))
+        parts.append(torch.stack([
+            t.reshape(shape).view(bits).to(device, non_blocking=True)
+            for t in there]))
     if rest:
         stage = torch.empty((len(rest),) + tuple(shape), dtype=bits,
                             pin_memory=device.type == "cuda")
@@ -233,11 +240,12 @@ def _stack_bucket(images, shape, dt: str, device, pool) -> torch.Tensor:
     return x.view(torch.uint16) if dt == "uint16" else x
 
 
-def _fetch_coefficients(coefs, device) -> List[np.ndarray]:
-    """Per-component int16 coefficients on the host: one asynchronous copy
-    each into pinned memory, then one event to wait on."""
+def _start_fetch(coefs, device):
+    """Start the copy of per-component int16 coefficients to the host: one
+    asynchronous copy each into pinned memory and one event (None on the
+    CPU). Returns (host tensors, event)."""
     if device.type != "cuda":
-        return [c.numpy() for c in coefs]
+        return coefs, None
     hosts = []
     for c in coefs:
         h = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
@@ -246,21 +254,27 @@ def _fetch_coefficients(coefs, device) -> List[np.ndarray]:
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(device))
     add_count("imgcodec.jpeg.d2h_bytes", sum(h.nbytes for h in hosts))
-    event.synchronize()
+    return hosts, event
+
+
+def _fetch_coefficients(coefs, device) -> List[np.ndarray]:
+    """Per-component int16 coefficients on the host (`_start_fetch`, then
+    the wait)."""
+    hosts, event = _start_fetch(coefs, device)
+    if event is not None:
+        event.synchronize()
     return [h.numpy() for h in hosts]
 
 
 def encode_batch_cuda(image_batch, params: Optional[EncodeParams] = None,
-                      device="cuda",
-                      device_stage: bool = True) -> List[EncodeResult]:
+                      device="cuda", device_stage: bool = True,
+                      mesh=None) -> List[EncodeResult]:
     """Encode images (tensors on any device, or numpy arrays; [H, W],
     [H, W, 1] or [H, W, 3]; uint8, or uint16 holding 12-bit samples) to
-    baseline JPEG streams, the pixel stage on `device`.
+    baseline JPEG streams, the pixel stage on `device`, or with a mesh on
+    its "dp" devices, a contiguous shard of every bucket each.
 
-    device_stage=False runs the whole encode on the host instead. On a CUDA
-    device the stage's product needs full float32:
-    `torch.backends.cuda.matmul.allow_tf32` must be off (PyTorch's default),
-    else this raises."""
+    device_stage=False runs the whole encode on the host instead."""
     params = params or EncodeParams()
     jp = params.jpeg or JpegEncodeParams()
     device = torch.device(device)
@@ -279,10 +293,6 @@ def encode_batch_cuda(image_batch, params: Optional[EncodeParams] = None,
         return out
     if not device_stage:
         return _encode_on_host(image_batch, params, jp)
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "the JPEG encode device stage needs full float32 products: "
-            "torch.backends.cuda.matmul.allow_tf32 is on")
 
     # 1) bucket by geometry (dims, channels, dtype → same frame)
     results: List[EncodeResult] = [None] * n  # type: ignore[list-item]
@@ -302,26 +312,44 @@ def encode_batch_cuda(image_batch, params: Optional[EncodeParams] = None,
             groups.setdefault((shape, dt), []).append(i)
 
     pool = _shared_pool("encode", min(16, os.cpu_count() or 2))
-    for (shape, dt), idxs in groups.items():
+    shard_devices = (mesh.axis_devices("dp") if mesh is not None
+                     else [device])
+    for (shape, dt), group in groups.items():
         frame = bucket_frame(shape, params, 12 if dt == "uint16" else 8)
-        # images already on the device first (see _stack_bucket)
-        idxs.sort(key=lambda i: not _lives_on(image_batch[i], device))
+        # per sample: (index, its shard's host coefficients, row in them)
+        samples = []
         with span("imgcodec.jpeg.encode_device_stage"):
-            x = _stack_bucket([image_batch[i] for i in idxs], shape, dt,
-                              device, pool)
-            coefs = [c.to(torch.int16)
-                     for c in encode_pixels(x, frame, device)]
-            coefs_host = _fetch_coefficients(coefs, device)
+            fetches = []
+            for (lo, hi), dev in zip(shard_bounds(len(group),
+                                                  len(shard_devices)),
+                                     shard_devices):
+                if lo == hi:
+                    continue
+                # images already on the device first (see _stack_bucket)
+                idxs = sorted(group[lo:hi],
+                              key=lambda i: not _lives_on(image_batch[i],
+                                                          dev))
+                with on_device(dev):
+                    x = _stack_bucket([image_batch[i] for i in idxs], shape,
+                                      dt, dev, pool)
+                    coefs = [c.to(torch.int16)
+                             for c in encode_pixels(x, frame, dev)]
+                    fetches.append((idxs, _start_fetch(coefs, dev)))
+            for idxs, (hosts, event) in fetches:
+                if event is not None:
+                    event.synchronize()
+                coefs_host = [h.numpy() for h in hosts]
+                samples.extend((i, coefs_host, j) for j, i in enumerate(idxs))
 
         with span("imgcodec.jpeg.encode_host_entropy"):
             tail = None if jp.optimized_huffman else _standard_tail(frame)
 
-            def one(j):
+            def one(coefs_host, j):
                 return _finish_one(frame, [c[j] for c in coefs_host], jp,
                                    tail)
 
-            done = _results([pool.submit(one, j) for j in range(len(idxs))])
-        for i, r in zip(idxs, done):
+            done = _results([pool.submit(one, c, j) for _i, c, j in samples])
+        for (i, _c, _j), r in zip(samples, done):
             results[i] = r
         _count("device", sum(bool(r.status & ProcessingStatus.SUCCESS)
                              for r in done))

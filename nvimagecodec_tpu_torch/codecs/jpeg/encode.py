@@ -17,8 +17,10 @@ one pixel stage of both encoders, in torch: the host encoder (`encode_jpeg`)
 runs it on CPU tensors and gives the JAX package's host encoder's bytes, the
 batched encoder (codecs/jpeg/batch_encode.py) runs it on a whole bucket on
 the device. Colour conversion and downsampling are the port's integer-exact
-ops; the fDCT+quant product is `torch.matmul` in float32, a plain product
-that the JAX package too computes outside any kernel.
+ops; the fDCT+quant product is `ops.kernels.fdct_quant_blocks`: on the CPU
+its plain version (`torch.matmul` in float32, as the JAX package computes it
+outside any kernel), on a CUDA device the hand-written csrc/fdct.cu, whose
+fixed summation order makes a block's coefficients independent of the batch.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from ...ops import color as color_ops
 from ...ops import resample as resample_ops
 from ...ops.convert import widen_uint16
 from ...ops.dct import quant_dct_matrix
+from ...ops.kernels import fdct_quant_blocks
 from .headers import Component, HuffTable, JpegFrame
 from .tables import (
     STD_AC_CHROMA,
@@ -147,12 +150,12 @@ def encode_pixels(img, frame: JpegFrame, device=None) -> List[torch.Tensor]:
     CPU for an array, when None).
 
     Colour convert + downsample are elementwise/strided int ops, fDCT+quant
-    is one [N,64]x[64,64] float32 matmul per component via quant_dct_matrix
-    (ops/dct.py), quantised by rounding half away from zero. On the CPU the
-    coefficients equal the JAX package's numpy path; on a CUDA device they
-    stay within 1 of it on fewer than 1% of entries only in full float32,
-    so `torch.backends.cuda.matmul.allow_tf32` must be off (PyTorch's
-    default; `encode_batch_cuda` checks it).
+    is one [N,64]x[64,64] float32 product per component via quant_dct_matrix
+    (ops/dct.py), quantised by rounding half away from zero
+    (`fdct_quant_blocks`). On the CPU the coefficients equal the JAX
+    package's numpy path; on a CUDA device they stay within 1 of it on fewer
+    than 1% of entries, and a block's coefficients do not depend on the
+    other blocks of the call.
     """
     hmax, vmax = frame.hmax, frame.vmax
     img = _samples_i32(img, device)
@@ -210,10 +213,9 @@ def encode_pixels(img, frame: JpegFrame, device=None) -> List[torch.Tensor]:
         x = p.reshape(*lead, bh, 8, bw, 8).transpose(-3, -2)
         x = x.reshape(*lead, bh * bw, 64)
         M = quant_matrix(frame.quant[c.tq], x.device)  # [64 coef, 64 pix]
-        coef = torch.matmul(x, M.T)
-        # round half away from zero (symmetric quantizer)
-        q = torch.sign(coef) * torch.floor(coef.abs() + 0.5)
-        out.append(q.to(torch.int32).reshape(*lead, bh, bw, 64))
+        # rounded half away from zero (symmetric quantizer)
+        q = fdct_quant_blocks(x.contiguous(), M)
+        out.append(q.reshape(*lead, bh, bw, 64))
     return out
 
 

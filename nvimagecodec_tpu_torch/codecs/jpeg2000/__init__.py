@@ -83,9 +83,16 @@ def _finish(img, sycc: bool, narrow: bool):
 class Jpeg2kHybridCudaDecoder(DecoderPlugin):
     """Host Tier-2 / Tier-1, pixel stage on `device`. Options: device,
     num_parallel_tiles (0: the thread pool's default), discard_levels
-    (reduced-resolution decode), device_pixel_stage (true forces the torch
-    stage on `device`, false keeps the IDWT on the host; unset: the stage
-    for a CUDA device and an image of core.DEVICE_STAGE_MIN_PIXELS or more).
+    (reduced-resolution decode), device_pixel_stage. Unset, the rule is
+    `core.device_route_auto`: the stage for a CUDA device and an image of
+    core.DEVICE_STAGE_MIN_PIXELS or more. device_pixel_stage is a switch for
+    the tests and the smoke run (true forces the torch stage on `device`,
+    false keeps the IDWT on the host), not a tuning knob.
+
+    `mesh` is set by the scheduler for `Decoder(mesh=...)`: the device stage
+    then runs over the mesh (tiles or rows over "sp", `core.decode_j2k`)
+    unless device_pixel_stage is false, and never for an ROI request, as in
+    the reference (codecs/jpeg2000/__init__.py:88-91).
 
     A stream the host stage rejects fails alone and goes on to the next
     decoder; a failure of the device stage is raised out of `decode_batch`
@@ -99,6 +106,7 @@ class Jpeg2kHybridCudaDecoder(DecoderPlugin):
     num_parallel_tiles = 0
     discard_levels = 0
     device_pixel_stage: Optional[bool] = None
+    mesh = None
 
     def set_options(self, opts) -> None:
         self.device = torch.device(opts.get("device", "cuda"))
@@ -130,12 +138,15 @@ class Jpeg2kHybridCudaDecoder(DecoderPlugin):
                if params.enable_roi and params.region is not None
                and self.discard_levels == 0 else None)
 
+        mesh = (self.mesh if roi is None and self.device_pixel_stage
+                is not False else None)
+
         def one(data, info):
             raw = bytes(data)
             img = decode_j2k(
                 raw, num_threads=self.num_parallel_tiles,
                 device=None if roi is not None else self._stage_device(info),
-                discard_levels=self.discard_levels, region=roi)
+                discard_levels=self.discard_levels, region=roi, mesh=mesh)
             # sYCC-tagged JP2 (the subsampled encodes): the upsampled YCbCr
             # goes back to RGB; 16-bit narrows unless any depth is allowed
             return _finish(img, jp2_colorspace(raw) == 18,

@@ -27,6 +27,7 @@ import torch
 
 from ...core.trace import add_count, span
 from ...ops import dwt as dwt_ops
+from ...parallel.tiles import idwt_tiles_sharded
 from .codestream import (
     COD,
     EOC,
@@ -685,9 +686,10 @@ class J2kDeviceStageError(RuntimeError):
 
 
 # pixels of the image below which the decoder plugin keeps the pixel stage
-# on the host (launches and the transfer outweigh a small tile); the
-# reference's starting value, see PERF.md for the crossover on the card
-DEVICE_STAGE_MIN_PIXELS = 256 * 256
+# on the host (launches and the transfer outweigh a small tile): on an H100
+# the host route wins up to 256x256 and the two draw from 512x512 up
+# (PERF.md section 6, the J2K crossover)
+DEVICE_STAGE_MIN_PIXELS = 512 * 512
 
 # streams per pixel stage: "device" one tile, "device_tiles" a uniform tile
 # grid, "host" the native / host synthesis
@@ -747,6 +749,15 @@ class _SubbandStage:
     def leaf_index(levels: int, r: int, bi: int) -> int:
         return 0 if r == 0 else 1 + 3 * (levels - r) + bi
 
+    def host_tensors(self):
+        """(LL, bands finest-first) as CPU tensor views of the host buffer
+        (pinned for a CUDA device): what a mesh's devices copy their shares
+        from."""
+        lv = [self.flat[self.offs[i]:self.offs[i + 1]].view(sh)
+              for i, sh in enumerate(self.shapes)]
+        return lv[0], [tuple(lv[1 + 3 * k:4 + 3 * k])
+                       for k in range((len(lv) - 1) // 3)]
+
     def upload(self, device):
         """One copy; (LL, bands finest-first) as views of the device
         buffer."""
@@ -768,7 +779,15 @@ def device_pixels(LL, bands, out_shape, reversible: bool, mct: bool,
     batched over the leading axes, inverse RCT / ICT, rounding (irreversible
     only, half to even), level shift and clamp. Returns [..., C, H, W]
     int32 samples in [0, 2^depth)."""
-    plane = dwt_ops.idwt2d(LL, bands, out_shape, reversible, origin)
+    return pixel_epilogue(
+        dwt_ops.idwt2d(LL, bands, out_shape, reversible, origin), reversible,
+        mct, depth)
+
+
+def pixel_epilogue(plane: torch.Tensor, reversible: bool, mct: bool,
+                   depth: int) -> torch.Tensor:
+    """The device pixel stage after the inverse DWT, on [..., C, h, w]
+    planes (a whole image or a block of its rows)."""
     if mct:
         y, cb_, cr = plane.unbind(-3)
         if reversible:  # inverse RCT (T.800 G.2)
@@ -806,27 +825,75 @@ class _DeviceJob(NamedTuple):
     tile_shape: Tuple[int, int]
     origin: Tuple[int, int]
     grid: Optional[Tuple[int, int]] = None  # (tiles_y, tiles_x)
+    missing: Tuple[int, ...] = ()  # tiles of the grid without a tile-part
 
 
-def _run_device_stage(job: _DeviceJob) -> torch.Tensor:
+def _rows_sharded_samples(job: _DeviceJob, mesh) -> torch.Tensor:
+    """One tile (origin (0, 0)) with its inverse DWT's rows split over the
+    mesh's "sp" devices (`ops/dwt.idwt2d_rows_sharded`, halo rows copied
+    between neighbours); MCT, shift and clamp on each shard; the [H, W, C]
+    samples assembled on the job's device (the mesh's first)."""
+    stage, device, cp, C, depth, tile_shape = job[:6]
+    blocks = dwt_ops.idwt2d_rows_sharded(*stage.host_tensors(), tile_shape,
+                                         cp.reversible, mesh)
+    add_count("imgcodec.jpeg2k.row_shards", len(blocks))
+    return torch.cat([
+        _to_samples(pixel_epilogue(b, cp.reversible, cp.mct and C == 3,
+                                   depth).permute(1, 2, 0), depth)
+        .to(device, non_blocking=True) for b in blocks])
+
+
+def _tiles_sharded_pixels(job: _DeviceJob, mesh) -> torch.Tensor:
+    """A uniform grid's tile axis split into contiguous shards over the
+    mesh's "sp" devices (`parallel/tiles.idwt_tiles_sharded`): each device
+    copies its tiles' subbands from the host buffer and runs the pixel
+    stage on them; the [T, C, th, tw] int32 samples gathered on the job's
+    device."""
+    stage, device, cp, C, depth, tile_shape = job[:6]
+    parts = idwt_tiles_sharded(*stage.host_tensors(), tile_shape,
+                               cp.reversible, mesh)
+    add_count("imgcodec.jpeg2k.tile_shards", len(parts))
+    return torch.cat([
+        pixel_epilogue(p, cp.reversible, cp.mct and C == 3, depth)
+        .to(device, non_blocking=True) for p in parts])
+
+
+def _run_device_stage(job: _DeviceJob, mesh=None) -> torch.Tensor:
     """Upload the job's buffer and run the pixel stage: one tile → [H, W,
-    C]; a uniform grid → the assembled [ty*th, tx*tw, C]. Any failure is
-    raised as J2kDeviceStageError."""
-    stage, device, cp, C, depth, tile_shape, origin, grid = job
+    C]; a uniform grid → the assembled [ty*th, tx*tw, C], zero where a tile
+    is missing (as the host path leaves it). With a mesh, one tile at origin
+    (0, 0) with levels splits its rows over "sp", and a grid whose tile
+    count divides by sp splits its tiles; anything else runs on the job's
+    device alone. Any failure is raised as J2kDeviceStageError."""
+    stage, device, cp, C, depth, tile_shape, origin, grid, missing = job
+    sp = mesh.shape["sp"] if mesh is not None else 0
+    rows = sp and grid is None and cp.levels > 0 and origin == (0, 0)
+    tiles = sp and grid is not None and (grid[0] * grid[1]) % sp == 0
     try:
-        LL, bands = stage.upload(device)
+        if rows or tiles:  # each device copies its share of the buffer
+            add_count("imgcodec.jpeg2k.h2d_bytes",
+                      stage.flat.numel() * stage.flat.element_size()
+                      if device.type == "cuda" else 0)
+        else:
+            LL, bands = stage.upload(device)
         with span("imgcodec.jpeg2k.device_stage"):
-            px = device_pixels(LL, bands, tile_shape, cp.reversible,
-                               cp.mct and C == 3, depth, origin)
-            if grid is None:
-                img = _to_samples(px.permute(1, 2, 0), depth)
+            if rows:
+                img = _rows_sharded_samples(job, mesh)
             else:
-                th, tw = tile_shape
-                # [T, C, th, tw] → [ty, th, tx, tw, C] → [H, W, C]
-                img = _to_samples(
-                    px.view(grid[0], grid[1], C, th, tw).permute(
-                        0, 3, 1, 4, 2), depth
-                ).view(grid[0] * th, grid[1] * tw, C)
+                px = (_tiles_sharded_pixels(job, mesh) if tiles else
+                      device_pixels(LL, bands, tile_shape, cp.reversible,
+                                    cp.mct and C == 3, depth, origin))
+                if grid is None:
+                    img = _to_samples(px.permute(1, 2, 0), depth)
+                else:
+                    if missing:
+                        px[list(missing)] = 0
+                    th, tw = tile_shape
+                    # [T, C, th, tw] → [ty, th, tx, tw, C] → [H, W, C]
+                    img = _to_samples(
+                        px.view(grid[0], grid[1], C, th, tw).permute(
+                            0, 3, 1, 4, 2), depth
+                    ).view(grid[0] * th, grid[1] * tw, C)
     except Exception as e:
         raise J2kDeviceStageError(
             f"J2K device pixel stage failed on {device}: "
@@ -855,6 +922,7 @@ def decode_j2k(
     discard_levels: int = 0,
     region=None,
     planar: bool = False,
+    mesh=None,
 ):
     """Decode JP2/J2K bytes → [H, W] or [H, W, C] u8/u16 (i8/i16 when the
     SIZ declares signed components — no DC level shift, T.800 G.1).
@@ -887,16 +955,27 @@ def decode_j2k(
     geometry), without COC/QCC overrides, subsampling, signed samples,
     discard_levels or a region, comes back as a tensor on that device (5/3
     bit-exact with the host path, 9/7 in float32 within 1). Any other stream
-    takes the host path and comes back as numpy. A failure of the device
-    stage raises J2kDeviceStageError; every error of the host stage is a
-    ValueError (or what the parser raises)."""
+    takes the host path and comes back as numpy. A grid with a tile missing
+    decodes the tiles present and leaves the missing one at zero, as the
+    host path does. A failure of the device stage raises
+    J2kDeviceStageError; every error of the host stage is a ValueError (or
+    what the parser raises).
+
+    mesh (parallel.mesh.Mesh): the device stage runs over the mesh and the
+    image comes back on its first device, which replaces `device`. A
+    uniform grid splits its tiles over "sp" when their count divides by sp;
+    one tile at origin (0, 0) with levels splits its inverse DWT's rows
+    over "sp", with halo rows copied between neighbouring devices; any
+    other device-stage stream runs on the first device alone."""
+    if mesh is not None:
+        device = mesh.first_device
     if device is not None:
         device = torch.device(device)
     with span("imgcodec.jpeg2k.host_stage"):
         res = _decode_host_stages(bytes(data), num_threads, device,
                                   discard_levels, region, planar)
     if isinstance(res, _DeviceJob):
-        img = _run_device_stage(res)
+        img = _run_device_stage(res, mesh)
         _count_route("device" if res.grid is None else "device_tiles")
         return img
     _count_route("host")
@@ -1297,16 +1376,15 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
                 ox0 = rx0 - ceil_div(siz.x0, d)
                 out[oy0 : oy0 + th, ox0 : ox0 + tw, c] = p
 
-    if uniform_grid:
-        if len(tiles_seen) != ntiles_total:
-            raise ValueError(
-                f"J2K: {ntiles_total - len(tiles_seen)} of {ntiles_total} "
-                "tiles missing from the codestream")
-        # leading axis T*C through one IDWT; assembled on the device
+    if uniform_grid and tiles_seen:
+        # leading axis T*C through one IDWT; assembled on the device, a
+        # missing tile's zero subbands replaced by zero samples there
         return _DeviceJob(stage, device, cp, C, depth,
                           (siz.tile_h, siz.tile_w), (0, 0),
-                          (siz.tiles_y, siz.tiles_x))
-    # (a single-tile stream without its tile-part ends here like the host
+                          (siz.tiles_y, siz.tiles_x),
+                          tuple(sorted(set(range(ntiles_total))
+                                       - tiles_seen)))
+    # (a stream without any of its tile-parts ends here like the host
     # path's: the zero image)
 
     if subsampled:

@@ -84,15 +84,17 @@ _global_lock = threading.Lock()
 
 
 def global_registry() -> CodecRegistry:
-    """Composition root, lazily built: the port's parsers and plugins
-    (reference: NvImgCodecDirector registers builtin modules,
+    """Composition root, lazily built: the port's parsers and plugins, then
+    the extensions of TPUIMGCODEC_TORCH_EXTENSIONS_PATH
+    (core/plugin_framework.py; reference: NvImgCodecDirector registers
+    builtin modules then discovers extensions,
     src/nvimgcodec_director.cpp:30-66)."""
     global _global_registry
     with _global_lock:
         if _global_registry is None:
-            from ..codecs import register_port_codecs
+            from .plugin_framework import register_builtin_modules
 
             reg = CodecRegistry()
-            register_port_codecs(reg)
+            register_builtin_modules(reg)
             _global_registry = reg
         return _global_registry

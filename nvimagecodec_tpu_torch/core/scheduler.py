@@ -64,9 +64,9 @@ _CSS_SORT_CLASS = {
 }
 
 
-def _instantiate(cache, plugin, plugin_options):
+def _instantiate(cache, plugin, plugin_options, mesh=None):
     """Shallow-copy the registered prototype once per scheduler and apply
-    this scheduler's options to the copy."""
+    this scheduler's options (and mesh, for device plugins) to the copy."""
     import copy
 
     key = id(plugin)
@@ -76,6 +76,9 @@ def _instantiate(cache, plugin, plugin_options):
         opts = plugin_options.get(inst.plugin_id)
         if opts:
             inst.set_options(opts)
+        if mesh is not None:
+            # device plugins shard their batched stage over the mesh
+            inst.mesh = mesh
         cache[key] = inst
     return inst
 
@@ -107,11 +110,16 @@ class GenericBatchProcessor:
         options: str = "",
         max_num_cpu_threads: int = 0,
         executor=None,
+        mesh=None,
     ):
         """`executor`: optional user-supplied object with submit(fn, *args)
         returning a future — the analog of the reference's user executor
         vtable (src/user_executor.h); defaults to an internal thread pool
-        (src/default_executor.cpp:25-77)."""
+        (src/default_executor.cpp:25-77).
+
+        `mesh`: optional parallel.mesh.Mesh; device plugins shard their
+        batched stage over it (JPEG over "dp", J2K over "sp")."""
+        self.mesh = mesh
         self.registry = registry or global_registry()
         self.backends = list(backends) if backends else None
         self.options = options
@@ -206,7 +214,8 @@ class GenericDecoder(GenericBatchProcessor):
         try:
             codec = self.registry.codec(codec_name)
             chain = [
-                _instantiate(self._instance_cache, d, self.plugin_options)
+                _instantiate(self._instance_cache, d, self.plugin_options,
+                             self.mesh)
                 for d in codec.decoders
                 if _allowed(d, self.backends)
             ]
@@ -347,7 +356,8 @@ class GenericEncoder(GenericBatchProcessor):
         try:
             codec = self.registry.codec(codec_name)
             chain = [
-                _instantiate(self._instance_cache, e, self.plugin_options)
+                _instantiate(self._instance_cache, e, self.plugin_options,
+                             self.mesh)
                 for e in codec.encoders
                 if _allowed(e, self.backends)
             ]

@@ -22,8 +22,10 @@ boundary-extension clamps between the two lifting steps; the multi-level
 transforms derive per-level parities from an `origin` in tile-component
 coordinates.
 
-The row-sharded synthesis with its halo exchange (reference :315-490) belongs
-to the multi-GPU slice and is not here.
+`idwt2d_rows_sharded` (reference :315-490) runs one image's synthesis with
+its rows split over the "sp" devices of a mesh; the vertical lifting steps
+read one row across each shard boundary, which is copied from the
+neighbouring shard's device (the halo).
 """
 from __future__ import annotations
 
@@ -249,3 +251,141 @@ def idwt2d(LL, bands, out_shape: Tuple[int, int], reversible: bool,
         cur = idwt2d_level(cur, HL, LH, HH, h, w, reversible,
                            _level_parity(origin, lev))
     return cur
+
+
+# -- row-sharded synthesis with halo exchange over the mesh -----------------
+#
+# The vertical lifting steps read one neighbour row across the row-shard
+# boundary, so a row-sharded inverse DWT needs a real halo exchange: each
+# shard gets its neighbour's boundary row, sliced on the neighbour's device
+# and copied to its own. Row shards are lists of tensors, one per device, in
+# row order.
+
+def _shift_right_halo(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """y[k] = x[k-1] globally across the row shards `xs` (whole-sample
+    symmetric at the global top edge: the first shard repeats its own first
+    row); each shard pulls the previous shard's last row."""
+    out = []
+    for k, x in enumerate(xs):
+        head = (xs[k - 1][..., -1:, :].to(x.device, non_blocking=True)
+                if k > 0 else x[..., :1, :])
+        out.append(torch.cat([head, x[..., :-1, :]], dim=-2))
+    return out
+
+
+def _shift_left_halo(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """y[k] = x[k+1] globally across the row shards (clamped at the global
+    bottom edge); each shard pulls the next shard's first row."""
+    out = []
+    for k, x in enumerate(xs):
+        tail = (xs[k + 1][..., :1, :].to(x.device, non_blocking=True)
+                if k + 1 < len(xs) else x[..., -1:, :])
+        out.append(torch.cat([x[..., 1:, :], tail], dim=-2))
+    return out
+
+
+def _inv_lift_53_rows_sharded(Ls, Hs):
+    """Vertical 5/3 synthesis on row shards: Ls / Hs hold each device's
+    even / odd rows (equal counts: the global row count is even and the
+    subbands split evenly). Returns the interleaved rows of each shard."""
+    H_l = _shift_right_halo(Hs)
+    evens = [L - ((hl + H + 2) >> 2) for L, hl, H in zip(Ls, H_l, Hs)]
+    even_r = _shift_left_halo(evens)
+    odds = [H + ((e + er) >> 1) for H, e, er in zip(Hs, evens, even_r)]
+    return [_interleave(e, o, -2, 2 * e.shape[-2])
+            for e, o in zip(evens, odds)]
+
+
+def _inv_lift_97_rows_sharded(Ls, Hs):
+    """The 9/7 counterpart: each lift is the unsharded one's multiply and
+    add, in its order."""
+    evens = [L * K for L in Ls]
+    odds = [H * (1.0 / K) for H in Hs]
+    sr = _shift_right_halo(odds)
+    evens = [e - DELTA * (s + o) for e, s, o in zip(evens, sr, odds)]
+    sl = _shift_left_halo(evens)
+    odds = [o - GAMMA * (e + s) for o, e, s in zip(odds, evens, sl)]
+    sr = _shift_right_halo(odds)
+    evens = [e - BETA * (s + o) for e, s, o in zip(evens, sr, odds)]
+    sl = _shift_left_halo(evens)
+    odds = [o - ALPHA * (e + s) for o, e, s in zip(odds, evens, sl)]
+    return [_interleave(e, o, -2, 2 * e.shape[-2])
+            for e, o in zip(evens, odds)]
+
+
+def idwt2d_level_rows_sharded(LLs, HLs, LHs, HHs, reversible: bool):
+    """One synthesis level on row shards (lists, one tensor per device, in
+    row order): the horizontal pass stays on each device, the vertical pass
+    exchanges halo rows. The global subband heights must be equal (even
+    image height) and split evenly over the shards."""
+    g = _inv_lift_53 if reversible else _inv_lift_97
+    Lys, Hys = [], []
+    for LL, HL, LH, HH in zip(LLs, HLs, LHs, HHs):
+        out_w = LL.shape[-1] + HL.shape[-1]
+        Lys.append(g(LL, HL, -1, out_w))
+        Hys.append(g(LH, HH, -1, out_w))
+    if reversible:
+        return _inv_lift_53_rows_sharded(Lys, Hys)
+    return _inv_lift_97_rows_sharded(Lys, Hys)
+
+
+def idwt2d_rows_sharded(LL, bands, out_shape: Tuple[int, int],
+                        reversible: bool, mesh,
+                        axis_name: str = "sp") -> List[torch.Tensor]:
+    """Multi-level synthesis (origin (0, 0)) with rows split over the
+    `axis_name` devices of `mesh` at every level whose subbands split
+    evenly: those levels form a fine-side suffix and stay in their shards
+    from one level to the next, so no level is gathered or recomputed.
+    Coarser levels run replicated, on every device from its own copy of
+    their subbands, and hand off with a local row slice. Only halo rows
+    cross devices. An image whose rows do not split (odd height, finest
+    subbands not a multiple of the shard count, no levels) takes the
+    reference's replicated fallback: the whole synthesis on the axis's
+    first device.
+
+    LL and bands (finest-first) may lie on any device, the host included:
+    each device receives only the rows it needs. Returns the image's row
+    blocks in order, one per device ([..., H/sp, W] each), or one block on
+    the first device for the fallback. Bit-exact vs idwt2d for 5/3."""
+    devs = mesh.axis_devices(axis_name)
+    sp = len(devs)
+    levels = len(bands)
+    H, W = out_shape
+    dims = subband_dims(H, W, levels)
+    if levels == 0 or dims[1][0] % sp or H % 2 or dims[0][0] != 2 * dims[1][0]:
+        dev = devs[0]
+        return [idwt2d(LL.to(dev), [tuple(b.to(dev) for b in lvl)
+                                    for lvl in bands], out_shape, reversible)]
+
+    def shardable(lev: int) -> bool:
+        # its (equal-height) input subbands split evenly, its output is even
+        h_out, sub_h = dims[lev][0], dims[lev + 1][0]
+        return h_out % 2 == 0 and 2 * sub_h == h_out and sub_h % sp == 0
+
+    # levels 0..m-1 (finest first) run sharded, m..levels-1 replicated
+    m = 0
+    while m < levels and shardable(m):
+        m += 1
+
+    def rows(t: torch.Tensor, k: int, dev) -> torch.Tensor:
+        per = t.shape[-2] // sp
+        return t.narrow(-2, k * per, per).to(dev, non_blocking=True)
+
+    curs = []
+    for k, dev in enumerate(devs):
+        if m == levels:
+            curs.append(rows(LL, k, dev))
+            continue
+        cur = LL.to(dev, non_blocking=True)
+        for lev in range(levels - 1, m - 1, -1):
+            h, w = dims[lev]
+            cur = idwt2d_level(cur, *(b.to(dev, non_blocking=True)
+                                      for b in bands[lev]), h, w, reversible)
+        curs.append(rows(cur, k, dev))  # replicated -> sharded handoff
+    for lev in range(m - 1, -1, -1):
+        HL, LH, HH = bands[lev]
+        curs = idwt2d_level_rows_sharded(
+            curs, [rows(HL, k, d) for k, d in enumerate(devs)],
+            [rows(LH, k, d) for k, d in enumerate(devs)],
+            [rows(HH, k, d) for k, d in enumerate(devs)], reversible)
+    return curs

@@ -458,13 +458,15 @@ def decode_segments_into(words: torch.Tensor, side: torch.Tensor,
     stacks = [torch.empty((B, mcus_y * v, mcus_x * h, 64), dtype=torch.int16,
                           device=dev) for h, v in hv]
     err = torch.empty((S,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.lib().tic_huffman_decode_into(
-        words.data_ptr(), W, S, side.data_ptr(), tables.data_ptr(), len(hv),
-        tables.shape[-1] - TAB_HEADER, look.data_ptr(), L,
-        _i32_array([x for pair in hv for x in pair]), mcus_x,
-        mcus_y, R, B, nsegs, _ptr_array(stacks), err.data_ptr(), lpw, warps,
-        stream)
+    # the C entry point launches on the runtime's current device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.lib().tic_huffman_decode_into(
+            words.data_ptr(), W, S, side.data_ptr(), tables.data_ptr(),
+            len(hv), tables.shape[-1] - TAB_HEADER, look.data_ptr(), L,
+            _i32_array([x for pair in hv for x in pair]), mcus_x,
+            mcus_y, R, B, nsegs, _ptr_array(stacks), err.data_ptr(), lpw,
+            warps, stream)
     _build.check(rc, "K2 huffman launch")
     _build.count_launch(decode_segments_into)
     return stacks, err
@@ -812,12 +814,14 @@ def decode_prog_scan_into(kind: str, words: torch.Tensor, side: torch.Tensor,
     hv_p = _i32_array([x for pair in (hv if dc else [(1, 1)]) for x in pair])
     cols_p = _i32_array([p.shape[1] for p in mine])
     err = torch.empty((S,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _build.lib().tic_prog_huffman_decode_into(
-        PROG_KINDS.index(kind), words.data_ptr(), W, S, side.data_ptr(),
-        tables.data_ptr(), tables.shape[0], tables.shape[-1] - TAB_HEADER,
-        look.data_ptr(), L, len(mine), hv_p, cols_p, _ptr_array(mine), width,
-        units, R, ss, se, al, err.data_ptr(), warps, stream)
+    # the C entry point launches on the runtime's current device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.lib().tic_prog_huffman_decode_into(
+            PROG_KINDS.index(kind), words.data_ptr(), W, S, side.data_ptr(),
+            tables.data_ptr(), tables.shape[0], tables.shape[-1] - TAB_HEADER,
+            look.data_ptr(), L, len(mine), hv_p, cols_p, _ptr_array(mine),
+            width, units, R, ss, se, al, err.data_ptr(), warps, stream)
     _build.check(rc, "K3 progressive huffman launch")
     _build.count_launch(decode_prog_scan_into)
     return err

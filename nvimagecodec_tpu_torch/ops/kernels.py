@@ -1,11 +1,22 @@
-"""K1: fused dequant + IDCT for the JPEG pixel stage.
+"""The 8x8 block products of the JPEG pixel stages.
 
-`dequant_idct_blocks` replaces the Pallas kernel of
+K1 `dequant_idct_blocks` (decode) replaces the Pallas kernel of
 nvimagecodec_tpu/ops/pallas_kernels.py (`_build_idct_blocks_fn`). A CUDA
 tensor goes to the hand-written kernel in csrc/idct.cu; a CPU tensor goes to
 `dequant_idct_blocks_plain`, the same function in plain PyTorch. Either way
 the sum runs over natural coefficient order, so zigzag and natural input of
 the same block give the same pixels.
+
+`fdct_quant_blocks` (encode) is the fDCT+quant product that the JAX package
+leaves to XLA (nvimagecodec_tpu/codecs/jpeg/encode.py:187): a CUDA tensor
+goes to csrc/fdct.cu, which sums every coefficient in one fixed order, so a
+block's coefficients do not depend on the batch around it; a CPU tensor goes
+to `fdct_quant_blocks_plain` (`torch.matmul`), whose coefficients equal the
+JAX package's numpy path.
+
+Each launch runs under `torch.cuda.device` of its tensors: the C entry
+points launch on the CUDA runtime's current device, which need not be the
+tensors' (a shard on `cuda:1`).
 """
 from __future__ import annotations
 
@@ -93,13 +104,57 @@ def dequant_idct_blocks(coefs: torch.Tensor, M: torch.Tensor,
     out = torch.empty(coefs.shape[:-1] + (64,), dtype=torch.int32,
                       device=coefs.device)
     nblocks = coefs.numel() // K
-    stream = torch.cuda.current_stream(coefs.device).cuda_stream
-    rc = _build.lib().tic_idct_blocks(
-        coefs.data_ptr(), K, int(zigzag), M.data_ptr(), out.data_ptr(),
-        nblocks, float(1 << (precision - 1)), (1 << precision) - 1, stream)
+    with torch.cuda.device(coefs.device):
+        stream = torch.cuda.current_stream(coefs.device).cuda_stream
+        rc = _build.lib().tic_idct_blocks(
+            coefs.data_ptr(), K, int(zigzag), M.data_ptr(), out.data_ptr(),
+            nblocks, float(1 << (precision - 1)), (1 << precision) - 1,
+            stream)
     _build.check(rc, "K1 idct launch")
     _build.count_launch(dequant_idct_blocks)
     return out
 
 
 dequant_idct_blocks.launches = 0
+
+
+def fdct_quant_blocks_plain(x: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """[..., 64] float32 centred samples → [..., 64] int32 quantised
+    coefficients, plain PyTorch: `x @ M.T`, rounded half away from zero."""
+    coef = torch.matmul(x, M.T)
+    return (torch.sign(coef) * torch.floor(coef.abs() + 0.5)).to(torch.int32)
+
+
+def fdct_quant_blocks(x: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """[..., 64] float32 centred samples (natural order) → [..., 64] int32
+    coefficients `sign(c) * floor(|c| + 0.5)` of c = x @ M.T.
+
+    M is `encode.quant_matrix(quant)` [64 coefficients, 64 pixels]. A CPU
+    tensor takes the plain version; a CUDA tensor launches csrc/fdct.cu or
+    raises. On the card every coefficient is summed over its 64 samples in
+    one fixed order, so it depends on its block alone; it stays within 1 of
+    the plain version on fewer than 1% of entries."""
+    if x.device.type == "cpu":
+        return fdct_quant_blocks_plain(x, M)
+    if x.device.type != "cuda":
+        raise ValueError(f"fdct_quant_blocks: unsupported device {x.device}")
+    if (x.dtype != torch.float32 or x.shape[-1] != 64
+            or not x.is_contiguous()):
+        raise ValueError("fdct_quant_blocks: samples must be contiguous "
+                         "float32 [..., 64]")
+    if (M.dtype != torch.float32 or tuple(M.shape) != (64, 64)
+            or M.device != x.device or not M.is_contiguous()):
+        raise ValueError("fdct_quant_blocks: M must be contiguous float32 "
+                         "[64, 64] on the samples' device")
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _build.lib().tic_fdct_quant_blocks(
+            x.data_ptr(), M.data_ptr(), out.data_ptr(), x.numel() // 64,
+            stream)
+    _build.check(rc, "fdct_quant_blocks launch")
+    _build.count_launch(fdct_quant_blocks)
+    return out
+
+
+fdct_quant_blocks.launches = 0

@@ -1,6 +1,6 @@
 """Input-pipeline integration: decode batches straight onto the device.
 
-The port of nvimagecodec_tpu/pipeline.py (without `mesh`). The production
+The port of nvimagecodec_tpu/pipeline.py. The production
 consumption pattern of an image codec on an accelerator is a training or
 serving input pipeline: encoded bytes stream in on the host, decoded pixel
 batches come out as device tensors, with the decode of batch N+1 overlapping
@@ -18,6 +18,7 @@ import torch
 from .api import Decoder
 from .core.interfaces import DecodeParams
 from .core.trace import span
+from .parallel.mesh import shard_bounds
 
 
 def decode_batches(
@@ -26,6 +27,7 @@ def decode_batches(
     decoder: Optional[Decoder] = None,
     drop_failed: bool = True,
     depth: int = 2,
+    mesh=None,
 ) -> Iterator[list]:
     """Yield one list of decoded images per input batch of encoded byte
     strings, pipelined `depth` batches deep: decode() calls for upcoming
@@ -43,34 +45,49 @@ def decode_batches(
     consumer may assume: every tensor of a yielded batch is complete in
     device memory and may be read from any stream without further
     synchronisation. Failed samples are dropped, or kept as None with
-    drop_failed=False. `decoder` defaults to `Decoder()`, on the card.
+    drop_failed=False. `decoder` defaults to `Decoder()`, on the card, or to
+    `Decoder(mesh=mesh)`.
+
+    With a mesh (parallel.mesh.Mesh) and outputs of one shape, a batch comes
+    out as a list of `dp` stacked tensors instead: the batch's contiguous
+    shards, in order, each on its "dp" device, so that `torch.cat` of them on
+    one device is the unsharded stack. Each device that holds a shard or
+    decoded an image records its own event, and all are waited for.
 
     With depth > 1, `decoder.decode` is called from `depth` threads at the
     same time, so a decoder given here must be safe for that. The port's
     `Decoder` is: its caches are filled by single dictionary reads and
     writes (at worst a value is built twice), and the route counters and the
     kernel wrappers' launch counts are updated under locks."""
-    dec = decoder or Decoder()
+    dec = decoder or Decoder(mesh=mesh)
     params = params or DecodeParams()
-    device = dec.device
 
     def _one(batch):
         outs = dec.decode(list(batch), params)
         if drop_failed:
             outs = [o for o in outs if o is not None]
-        event = None
-        if device.type == "cuda":
-            # the stream is in order: this event completes after the whole
-            # batch
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(device))
-        return outs, event
+        devices = {dec.device}
+        devices.update(o.array.device for o in outs if o is not None)
+        if mesh is not None and outs and None not in outs and len(
+                {tuple(o.shape) for o in outs}) == 1:
+            outs = _shard_stack([o.array for o in outs], mesh)
+            devices.update(t.device for t in outs)
+        # each stream is in order: its event completes after the batch's
+        # work on that device
+        events = []
+        for d in devices:
+            if d.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(d))
+                events.append(event)
+        return outs, events
 
     def _force(done):
-        outs, event = done
-        if event is not None:
+        outs, events = done
+        if events:
             with span("imgcodec.pipeline.device_wait"):
-                event.synchronize()
+                for event in events:
+                    event.synchronize()
         return outs
 
     depth = max(1, depth)
@@ -96,3 +113,15 @@ def decode_batches(
             yield _force(futs.popleft().result())
     finally:
         ex.shutdown(wait=False)
+
+
+def _shard_stack(arrays, mesh) -> list:
+    """Same-shape images as `dp` stacked tensors: contiguous shards of the
+    batch in order, each on its "dp" device (an empty shard gives an empty
+    stack)."""
+    devs = mesh.axis_devices("dp")
+    return [torch.stack([a.to(d, non_blocking=True) for a in arrays[lo:hi]])
+            if hi > lo else
+            torch.empty((0,) + tuple(arrays[0].shape), dtype=arrays[0].dtype,
+                        device=d)
+            for (lo, hi), d in zip(shard_bounds(len(arrays), len(devs)), devs)]

@@ -158,5 +158,19 @@ def test_noncontiguous_and_strided_input():
 
 
 def test_module_has_no_sharded_synthesis():
-    """The row-sharded synthesis belongs to the multi-GPU slice."""
-    assert not hasattr(port_dwt, "idwt2d_rows_sharded")
+    """The plain synthesis knows no mesh: row sharding is
+    `idwt2d_rows_sharded` alone, and on a one-device mesh it gives the
+    plain synthesis's image in one row block."""
+    import inspect
+
+    from nvimagecodec_tpu_torch.parallel.mesh import make_mesh
+
+    for fn in (port_dwt.idwt2d, port_dwt.idwt2d_level, port_dwt.dwt2d):
+        assert "mesh" not in inspect.signature(fn).parameters
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        -500, 500, (3, 32, 24)).astype(np.int32))
+    LL, bands = port_dwt.dwt2d(x, 2, True)
+    blocks = port_dwt.idwt2d_rows_sharded(
+        LL, bands, (32, 24), True, make_mesh(1, 1, [torch.device("cpu")]))
+    assert len(blocks) == 1
+    assert torch.equal(blocks[0], port_dwt.idwt2d(LL, bands, (32, 24), True))

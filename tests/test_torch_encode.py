@@ -407,18 +407,6 @@ def test_bucket_tail_gives_the_per_sample_bytes():
     assert alone == port_encode.encode_jpeg(img, params)
 
 
-def test_tf32_is_refused_on_a_cuda_device():
-    """The check runs before any CUDA call, so it can be shown here."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        with pytest.raises(RuntimeError, match="allow_tf32"):
-            be.encode_batch_cuda([make_photo(16, 16, seed=0)], None, "cuda")
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
-    assert not old  # PyTorch's default
-
-
 def test_spans_of_the_device_route():
     trace.start_collect()
     try:
@@ -459,3 +447,54 @@ def test_cpu_encoder_names_a_device_only_for_its_device_pixel_stage():
     assert plugin.device is None and not plugin.device_pixel_stage
     plugin.set_options({"device_pixel_stage": "true", "device": "cpu"})
     assert plugin.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("css", ["420", "444", "gray"])
+def test_encode_pixels_runs_the_fdct_plain_version_on_the_cpu(css,
+                                                              monkeypatch):
+    """On the CPU, `fdct_quant_blocks` inside `encode_pixels` takes its plain
+    version (`torch.matmul`, no kernel launch) once per component, so the
+    coefficients stay the JAX package's numpy path's and the bytes its host
+    encoder's."""
+    from nvimagecodec_tpu_torch.ops import kernels
+
+    calls = []
+    real = kernels.fdct_quant_blocks_plain
+
+    def spy(x, M):
+        calls.append(tuple(x.shape))
+        return real(x, M)
+
+    monkeypatch.setattr(kernels, "fdct_quant_blocks_plain", spy)
+    img = _photo(css)
+    nchan = 1 if img.ndim == 2 else 3
+    fa, fb = _frames(img.shape[0], img.shape[1], nchan, 85,
+                     None if css == "gray" else css)
+    before = kernels.fdct_quant_blocks.launches
+    got = port_encode.encode_pixels(img, fb, device="cpu")
+    assert len(calls) == nchan and all(s[-1] == 64 for s in calls)
+    assert kernels.fdct_quant_blocks.launches == before
+    for g, w in zip(got, ref_encode.encode_pixels(img, fa, use_jax=False)):
+        np.testing.assert_array_equal(g.numpy(), w)
+    p = dict(quality=85, chroma_subsampling=None if css == "gray" else css)
+    assert (port_encode.encode_jpeg(img, port.EncodeParams(**p))
+            == ref_encode.encode_jpeg(img, ref.EncodeParams(**p)))
+
+
+def test_fdct_plain_version_rounds_half_away_from_zero():
+    from nvimagecodec_tpu_torch.ops import kernels
+
+    x = torch.zeros(2, 64)
+    x[0, :6] = torch.tensor([2.5, -2.5, 0.49, -0.49, -0.5, 7.0])
+    got = kernels.fdct_quant_blocks(x, torch.eye(64))
+    assert got.dtype == torch.int32
+    assert got[0, :6].tolist() == [3, -3, 0, 0, -1, 7]
+    assert not got[1].any()
+
+
+def test_fdct_wrapper_refuses_other_devices():
+    from nvimagecodec_tpu_torch.ops import kernels
+
+    with pytest.raises(ValueError):
+        kernels.fdct_quant_blocks(torch.zeros(4, 64, device="meta"),
+                                  torch.eye(64, device="meta"))

@@ -3,7 +3,11 @@ PyTorch versions, the Decoder (idx and dri routes) and the progressive
 route on the GPU against the same on the CPU, and the encode device stage,
 the Encoder, resize, the input pipeline and the command line on the GPU
 against the same on the CPU; and the JPEG2000 device pixel stage, the torch
-DWT and the J2K Decoder / Encoder on the GPU against the same on the CPU.
+DWT and the J2K Decoder / Encoder on the GPU against the same on the CPU;
+and the multi-device layer: fdct_quant_blocks against its plain version,
+an image encoded alone against the same image in a batch, Decoder(mesh=),
+GenericEncoder(mesh=) and decode_j2k(mesh=) on meshes of the one card
+(and a shard on cuda:1 where a second card is present).
 They need a CUDA device and skip without one. On the GPU machine:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
@@ -465,20 +469,6 @@ def test_encoder_gpu_host_route_gives_the_cpu_bytes(cuda):
     assert got == want
 
 
-def test_encoder_gpu_refuses_tf32(cuda):
-    from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
-
-    _, tensors = _photos_on(cuda, n=1, h=16, w=16)
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        with pytest.raises(RuntimeError, match="allow_tf32"):
-            be.encode_batch_cuda(tensors, None, cuda)
-        with pytest.raises(RuntimeError, match="allow_tf32"):
-            port.Encoder(device="cuda").encode(tensors, "jpeg")
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-
 @pytest.mark.parametrize("interp", ["bilinear", "bicubic", "lanczos"])
 @pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
 def test_resize_gpu_vs_cpu(cuda, interp, dtype):
@@ -689,7 +679,8 @@ def test_j2k_failure_on_the_decoded_cuda_tensor_raises(cuda, monkeypatch):
 
 
 def test_j2k_encoder_gpu_takes_cuda_tensors(cuda):
-    img = make_photo(256, 320, seed=4)
+    # at the device stage's floor, so the decode comes back on the card
+    img = make_photo(512, 512, seed=4)
     p = port.EncodeParams(jpeg2k=port.Jpeg2kEncodeParams(reversible=True))
     data = port.Encoder(device="cuda").encode(
         torch.from_numpy(img).to(cuda), "jp2", p)
@@ -697,3 +688,114 @@ def test_j2k_encoder_gpu_takes_cuda_tensors(cuda):
     back = port.Decoder(device="cuda").decode(data)
     assert back.array.is_cuda
     assert np.array_equal(back.array.cpu().numpy(), img)
+
+
+# ---------------------------------------- fdct_quant_blocks, several devices
+
+def test_fdct_kernel_vs_plain_and_batch_independent(cuda):
+    from nvimagecodec_tpu_torch.codecs.jpeg.encode import quant_matrix
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.integers(-128, 128, (5000, 64))
+                         .astype(np.float32)).to(cuda)
+    M = quant_matrix(quality_scaled_quant(STD_CHROMA_QUANT, 85), cuda)
+    before = kernels.fdct_quant_blocks.launches
+    got = kernels.fdct_quant_blocks(x, M)
+    assert kernels.fdct_quant_blocks.launches == before + 1
+    d = (got - kernels.fdct_quant_blocks_plain(x, M)).abs()
+    assert int(d.max()) <= 1 and float((d > 0).double().mean()) < 0.01
+    for lo, n in ((0, 1), (3, 7), (129, 1000)):
+        assert torch.equal(kernels.fdct_quant_blocks(
+            x[lo:lo + n].contiguous(), M), got[lo:lo + n])
+
+
+def _cuda_mesh(cuda, dp=1, sp=1):
+    from nvimagecodec_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(dp=dp, sp=sp, devices=[cuda] * (dp * sp))
+
+
+def test_decoder_mesh_on_one_card_is_bit_exact(cuda, jpgs):
+    """Decoder(mesh=) with dp=2 over the one card twice: every image equals
+    the unsharded decode, idx and dri buckets both on the device route."""
+    dri = torch_corpus.dri_streams()[:4] * 8
+    for streams in (jpgs * 2, dri):  # shards of 20 and 16 images
+        want = port.Decoder(device="cuda").decode(streams)
+        k2 = ek.decode_segments_into.launches
+        before = dict(jb.ROUTES)
+        got = port.Decoder(mesh=_cuda_mesh(cuda, 2)).decode(streams)
+        assert ek.decode_segments_into.launches == k2 + 2  # one a shard
+        assert jb.ROUTES["host"] == before["host"]
+        for a, b in zip(want, got):
+            assert b.array.is_cuda and torch.equal(a.array, b.array)
+
+
+def test_one_image_alone_gives_its_batch_bytes(cuda):
+    """The encode device stage sums every coefficient in one order, so an
+    image encoded alone gives the bytes it gets inside a batch of 256."""
+    photos, tensors = _photos_on(cuda, n=8)
+    batch = [tensors[j % 8] for j in range(256)]
+    params = port.EncodeParams(quality=85, chroma_subsampling="420")
+    enc = port.Encoder(device="cuda")
+    together = enc.encode(batch, "jpeg", params)
+    for j in range(8):
+        assert enc.encode(tensors[j], "jpeg", params) == together[j]
+        assert together[j + 8] == together[j]
+
+
+def test_sharded_encode_gives_the_unsharded_bytes(cuda):
+    from nvimagecodec_tpu_torch.core.scheduler import GenericEncoder
+
+    photos, tensors = _photos_on(cuda, n=20)
+    params = port.EncodeParams(quality=85, chroma_subsampling="420")
+    want = port.Encoder(device="cuda").encode(tensors, "jpeg", params)
+    for dp in (2, 3):
+        enc = GenericEncoder(registry=port.port_registry(),
+                             mesh=_cuda_mesh(cuda, dp))
+        got = [r.data for r in enc.encode_batch(tensors, [None] * 20,
+                                                "jpeg", params)]
+        assert got == want
+
+
+def test_j2k_mesh_on_one_card_is_bit_exact(cuda):
+    img = make_photo(256, 256, seed=6)
+    for kw in (dict(levels=5), dict(levels=3, tile_size=64)):
+        data = j2k.encode_j2k(img, reversible=True, **kw)
+        for sp in (2, 4):
+            got = j2k.decode_j2k(data, device=None,
+                                 mesh=_cuda_mesh(cuda, 1, sp))
+            assert got.is_cuda and np.array_equal(got.cpu().numpy(), img)
+
+
+def test_a_second_card_runs_its_own_shard(cuda):
+    """With two cards, the dp=2 mesh of make_mesh() puts a shard on cuda:1:
+    its kernels launch there (under torch.cuda.device of the shard), its
+    images come back there, and everything equals the one-card decode and
+    encode; J2K rows over sp=2 exchange halos between the cards."""
+    from nvimagecodec_tpu_torch.core.scheduler import GenericEncoder
+    from nvimagecodec_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh = make_mesh(dp=2, devices=["cuda:0", "cuda:1"])
+    streams = [encode_jpeg(make_photo(120, 168, seed=s), port.EncodeParams(
+        quality=85, chroma_subsampling="420")) for s in range(32)]
+    want = port.Decoder(device="cuda:0").decode(streams)
+    got = port.Decoder(mesh=mesh).decode(streams)
+    torch.cuda.synchronize()
+    assert {str(o.array.device) for o in got} == {"cuda:0", "cuda:1"}
+    for a, b in zip(want, got):
+        assert torch.equal(a.array, b.array.to("cuda:0"))
+    params = port.EncodeParams(quality=85, chroma_subsampling="420")
+    tensors = [o.array for o in want]
+    enc = GenericEncoder(registry=port.port_registry(), mesh=mesh)
+    assert [r.data for r in enc.encode_batch(tensors, [None] * 32, "jpeg",
+                                             params)] == port.Encoder(
+        device="cuda:0").encode(tensors, "jpeg", params)
+    img = make_photo(256, 256, seed=6)
+    data = j2k.encode_j2k(img, reversible=True, levels=5)
+    out = j2k.decode_j2k(data, device=None,
+                         mesh=make_mesh(dp=1, sp=2,
+                                        devices=["cuda:0", "cuda:1"]))
+    assert out.device == torch.device("cuda:0")
+    assert np.array_equal(out.cpu().numpy(), img)

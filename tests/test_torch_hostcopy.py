@@ -585,3 +585,19 @@ def test_j2k_epilogue_equals_numpy():
     assert L.tic_j2k_shift_u8(y.ctypes.data_as(i32p), 999, 1,
                               one.ctypes.data_as(u8p)) == 0
     assert np.array_equal(one, np.clip(y + 128, 0, 255).astype(np.uint8))
+
+
+# -- the multi-device layer's host helpers -----------------------------------
+@pytest.mark.parametrize("shards,keyed", [(2, False), (4, False), (3, True)])
+def test_shard_streams_equals_reference(shards, keyed):
+    from nvimagecodec_tpu.parallel.multihost import (
+        shard_streams as ref_shard_streams,
+    )
+    from nvimagecodec_tpu_torch.parallel.multihost import shard_streams
+
+    rng = np.random.default_rng(shards)
+    streams = [bytes(int(rng.integers(1, 3000))) for _ in range(29)]
+    keys = ([(int(rng.integers(0, 3)), -len(s)) for s in streams] if keyed
+            else None)
+    assert (shard_streams(streams, shards, keys)
+            == ref_shard_streams(streams, shards, keys))

@@ -891,3 +891,45 @@ def test_siz_of_subsampled_encode_equals_reference():
     rsiz, _rcp, _ = ref_parse_main_header(unwrap_jp2(data), 0)
     assert siz.sub_x == rsiz.sub_x == [1, 2, 2]
     assert siz.sub_y == rsiz.sub_y == [1, 2, 2]
+
+
+def _without_tile_part(cs: bytes, tile: int) -> bytes:
+    """A raw codestream with the tile-parts of one tile cut out (each SOT
+    segment spans Psot bytes from its marker)."""
+    _siz, _cp, pos = parse_main_header(cs, 0)
+    out, p = bytearray(cs[:pos]), pos
+    while cs[p:p + 2] == b"\xff\x90":
+        isot, psot = struct.unpack(">HI", cs[p + 4:p + 10])
+        if isot != tile:
+            out += cs[p:p + psot]
+        p += psot
+    return bytes(out + cs[p:])
+
+
+@pytest.mark.parametrize("tile", [0, 5, 15])
+def test_missing_tile_decodes_like_the_host_path(tile):
+    """A uniform 4x4 grid with one tile-part cut out: the device route
+    (forced, on the CPU) gives the host route's image, the tiles present
+    and zero where the tile is missing, as the JAX package's host route
+    does."""
+    img = _photo(64, 64, seed=8)
+    full = port_core.encode_j2k(img, reversible=True, levels=2, tile_size=16,
+                                stream_type="j2k")
+    cut = _without_tile_part(full, tile)
+    assert len(cut) < len(full)
+    before = dict(port_core.ROUTES)
+    dev = port_core.decode_j2k(cut, device="cpu")
+    assert _routes_delta(before) == {"device_tiles": 1}
+    host = port_core.decode_j2k(cut, device=None)
+    theirs = np.asarray(ref_core.decode_j2k(cut, use_jax=False))
+    assert isinstance(dev, torch.Tensor)
+    np.testing.assert_array_equal(dev.numpy(), host)
+    np.testing.assert_array_equal(host, theirs)
+    ty, tx = divmod(tile, 4)
+    want = img.copy()
+    want[ty * 16:(ty + 1) * 16, tx * 16:(tx + 1) * 16] = 0
+    np.testing.assert_array_equal(host, want)
+    # and through the Decoder with the stage forced
+    got = port.Decoder(device="cpu", options=(
+        "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=true")).decode(cut)
+    assert torch.equal(got.array, dev)

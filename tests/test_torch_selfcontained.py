@@ -66,7 +66,10 @@ def test_port_has_its_own_host_layer():
                 "codecs/jpeg2000/t1_bridge.py", "codecs/jpeg2000/tagtree.py",
                 "native/j2k_t1.cpp", "native/j2k_ht.cpp", "native/j2k_t2.cpp",
                 "native/j2k_block_batch.cpp", "native/j2k_idwt.cpp",
-                "native/j2k_finish.cpp", "native/j2k_ht_tables.inc"]:
+                "native/j2k_finish.cpp", "native/j2k_ht_tables.inc",
+                "core/plugin_framework.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/tiles.py",
+                "parallel/multihost.py"]:
         assert os.path.exists(os.path.join(ROOT, "nvimagecodec_tpu", rel))
         assert os.path.exists(os.path.join(ROOT, "nvimagecodec_tpu_torch",
                                            rel)), rel
@@ -77,18 +80,20 @@ J2K_FILES = [f for f in FILES if "jpeg2000" in f or f.endswith("ops/dwt.py")]
 
 @pytest.mark.parametrize("path", J2K_FILES)
 def test_j2k_files_carry_no_jax_route_switch(path):
-    """The J2K stack of the port has no `mesh`, no `use_jax` and no
-    TIC_J2K_* environment switch: the caller's device decides."""
+    """The J2K stack of the port has no `use_jax`, no TIC_J2K_* environment
+    switch and none of jax's sharding: the caller's device decides, and a
+    `mesh` is the port's own list of torch devices (parallel/mesh.py)."""
     assert len(J2K_FILES) == 7
     with open(os.path.join(ROOT, path)) as f:
         text = f.read()
-    for word in ("use_jax", "TIC_J2K_", "jax.", "jnp.", "device_put"):
+    for word in ("use_jax", "TIC_J2K_", "jax.", "jnp.", "device_put",
+                 "NamedSharding", "PartitionSpec", "shard_map", "ppermute"):
         assert word not in text, (path, word)
     tree = ast.parse(text, path)
     names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)} | {
         a.arg for n in ast.walk(tree) if isinstance(n, ast.arguments)
         for a in n.args + n.kwonlyargs}
-    assert "mesh" not in names, path
+    assert "use_jax" not in names, path
 
 
 _BLOCKER = r"""
