@@ -1407,6 +1407,22 @@ def mesh_phase(jpgs, imgs, dec, params, j2k):
                      f"every launch (shapes {shapes}) max |diff| {k1_err}, K2 "
                      f"bit-exact vs plain on shard 0's {BATCH // MESH_DP} "
                      "streams")
+    # a bucket at the route's floor whose shards are under it: the route is
+    # chosen for the bucket, so each shard still takes K2
+    small = dri_jpgs[:jb._MIN_BATCH + jb._MIN_BATCH // 2]
+    counts_zero()
+    routes0 = dict(jb.ROUTES)
+    got = mdec.decode(small)
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches["K2"] != MESH_DP or jb.ROUTES["dri"] - routes0["dri"] != len(
+            small) or jb.ROUTES["host"] != routes0["host"]:
+        raise RuntimeError(f"mesh dri bucket of {len(small)}: launches "
+                           f"{launches}, not K2 once a shard")
+    same_images(got, dec.decode(small), f"mesh dri bucket of {len(small)}")
+    texts.append(f"a dri bucket of {len(small)} (shards of {len(small) // 2}"
+                 f", under the floor of {jb._MIN_BATCH}): K2 once a shard, "
+                 "equal to the unsharded decode")
     phase("mesh", f"dp={MESH_DP} over cuda:0 twice: " + "; ".join(texts))
 
     # 3) J2K: one tile's rows over sp=2 and 4, the 16-tile grid over sp=4
@@ -1435,6 +1451,19 @@ def mesh_phase(jpgs, imgs, dec, params, j2k):
                      "unsharded decode and the photo")
     phase("mesh", f"J2K lossless {J2K_HW}x{J2K_HW}x3, {J2K_LEVELS} levels: "
           + "; ".join(notes) + "; no host IDWT ran")
+    # an image under the device stage's floor stays on the host with a mesh
+    tiny = photo[:256, :256].copy()
+    before = j2k_routes()
+    trace.start_collect()
+    got = sdec.decode(encode_j2k(tiny, reversible=True, levels=3))
+    seen = trace.stop_collect()["counters"]
+    took = {k: n for k, n in j2k_took(before).items() if n}
+    if took != {"host": 1} or "imgcodec.jpeg2k.tile_shards" in seen or (
+            not torch.equal(torch.as_tensor(got.array).cpu(),
+                            torch.from_numpy(tiny))):
+        raise RuntimeError(f"mesh j2k 256x256: routes {took}, counters {seen}")
+    phase("mesh", "J2K 256x256 through the sp=4 Decoder: host route (under "
+          "the device stage's floor), the photo exactly")
 
     # 4) encode: sharded and alone give the unsharded bytes
     tensors = [im.array for im in imgs]

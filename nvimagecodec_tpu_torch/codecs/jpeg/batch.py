@@ -25,12 +25,14 @@ host route, as the reference's router does.
 On a CPU device every route runs with the kernels' plain versions, which
 is how the tests hold the port against the reference.
 
-With a mesh (`Decoder(mesh=)`), every bucket splits into contiguous shards
-of its samples, one per "dp" device, and each shard takes its route on its
-own device exactly as a bucket of that size would (the reference shards K2's
-lane axis instead; the idx route's lanes are runs of one image's MCU rows,
-so both give the same coefficients). A shard's work runs under
-`torch.cuda.device` of its device and on that device's current stream.
+With a mesh (`Decoder(mesh=)`), each bucket's route is chosen for the whole
+bucket, as without one, and then its samples split into contiguous shards,
+one per "dp" device: each shard of the idx or dri route is one K2 launch and
+one pixel stage on its device, and the samples left to the host route split
+the same way (the reference shards K2's lane axis instead; the idx route's
+lanes are runs of one image's MCU rows, so both give the same
+coefficients). A shard's work runs under `torch.cuda.device` of its device
+and on that device's current stream.
 
 Staging is pinned host memory from PyTorch's caching allocator, reused only
 once the copies that read it have completed. Kernel and device errors raise; a corrupt stream or an index-scan
@@ -127,23 +129,30 @@ def _pixel_stage(frame, coefs, zigzag, fancy, to_rgb, to_u8, bitexact):
         return finish_image(frame, img, to_rgb, to_u8)
 
 
-def split_indexed(good, frames, raws, R, nsegs, device, min_ok: int = 1):
-    """Host index scan + word packing for one bucket. Returns
-    (ok, bad, bad_scan, words, side) with words [W, S] and side [6, S]
-    int32 staging tensors, or None when fewer than `min_ok` samples survive
-    the scan.
-    One K2 launch covers the bucket: S = ceil(B * nsegs / 128) * 128."""
+def scan_indexed(good, frames, raws, R, nsegs):
+    """The host index scan of one bucket. Returns (ok, bad_scan, scan): the
+    samples of `good` it took and those it rejected, and what
+    `pack_indexed` packs their words from."""
     nthreads = min(32, os.cpu_count() or 2)
     f0 = frames[good[0]]
     mx = -(-f0.width // (8 * f0.hmax))
-    my = -(-f0.height // (8 * f0.vmax))
-    scans, (arena, offs, dlens, bits, preds, _n) = index_scan_batch(
-        frames, raws, good, R // mx, nsegs, nthreads)
+    scans, arrays = index_scan_batch(frames, raws, good, R // mx, nsegs,
+                                     nthreads)
     ok = [i for i in good if scans[i] is not None]
     bad_scan = [i for i in good if scans[i] is None]
-    if len(ok) < min_ok:
-        return None
-    pos_of = {i: k for k, i in enumerate(good)}
+    return ok, bad_scan, ({i: k for k, i in enumerate(good)}, arrays)
+
+
+def pack_indexed(scan, ok, frames, R, nsegs, device):
+    """Word packing of `ok` (samples the scan took, all of them or a shard)
+    for one K2 launch: S = ceil(B * nsegs / 128) * 128. Returns
+    (bad, words, side) with bad the positions in `ok` whose words did not
+    pack, words [W, S] and side [6, S] int32 staging tensors."""
+    pos_of, (arena, offs, dlens, bits, preds, _n) = scan
+    nthreads = min(32, os.cpu_count() or 2)
+    f0 = frames[ok[0]]
+    mx = -(-f0.width // (8 * f0.hmax))
+    my = -(-f0.height // (8 * f0.vmax))
     ks = np.asarray([pos_of[i] for i in ok])
     W = indexed_words_needed_batch(dlens[ks], bits[ks], nsegs)
     B = len(ok)
@@ -167,7 +176,18 @@ def split_indexed(good, frames, raws, R, nsegs, device, min_ok: int = 1):
     # [B, nsegs, 4] predictor seeds → side rows 2..5
     side_np[2:6, :B * nsegs] = (preds[ks, :nsegs * 4].reshape(B, nsegs, 4)
                                 .transpose(2, 0, 1).reshape(4, B * nsegs))
-    return ok, set(bad), bad_scan, words, side
+    return set(bad), words, side
+
+
+def split_indexed(good, frames, raws, R, nsegs, device):
+    """Host index scan + word packing of one bucket for one K2 launch.
+    Returns (ok, bad, bad_scan, words, side) as `scan_indexed` and
+    `pack_indexed` give them, or None when the scan takes no sample."""
+    ok, bad_scan, scan = scan_indexed(good, frames, raws, R, nsegs)
+    if not ok:
+        return None
+    bad, words, side = pack_indexed(scan, ok, frames, R, nsegs, device)
+    return ok, bad, bad_scan, words, side
 
 
 def split_dri(good, frames, raws, nsegs, device):
@@ -200,12 +220,22 @@ def route_plan(frame):
         return None
 
 
+def _shards(samples, devices):
+    """`samples` in contiguous shards, one per device: [(shard, device)],
+    empty shards left out."""
+    return [(samples[lo:hi], dev) for (lo, hi), dev in
+            zip(shard_bounds(len(samples), len(devices)), devices) if lo < hi]
+
+
 def _try_device_entropy(idxs, frames, raws, results, fancy, to_rgb, to_u8,
-                        bitexact, device, checks):
-    """The idx or dri route for one geometry bucket. Returns the sample
-    indices it leaves to the host route, or None to decline the whole
-    bucket. Appends (ok, bad, nsegs, err, event) to `checks` for the
-    caller's flag check."""
+                        bitexact, devices, checks):
+    """The idx or dri route for one geometry bucket, its samples split into
+    contiguous shards over `devices` (one device without a mesh), one K2
+    launch a shard. The route is chosen for the whole bucket, as for an
+    unsharded decode, and every shard is split on the host before the
+    first launch. Returns the sample indices it leaves to the host route, or
+    None to decline the whole bucket. Appends (ok, bad, nsegs, err, event)
+    to `checks` for the caller's flag check, one entry a shard."""
     f0 = frames[idxs[0]]
     plan = route_plan(f0)
     if plan is None:
@@ -217,42 +247,51 @@ def _try_device_entropy(idxs, frames, raws, results, fancy, to_rgb, to_u8,
     leftover = [i for i in idxs if i not in good_set]
     kind, _key, R, nsegs = plan
 
+    splits = []  # (ok, bad, words, side, device) a shard
     if kind == "dri":
         with span("imgcodec.jpeg.dri_split"):
-            split = split_dri(good, frames, raws, nsegs, device)
-        if split is None:
-            return None
-        bad_pos, words, side = split
-        ok, bad = good, set(bad_pos)  # bad: malformed restart structure
+            for sub, dev in _shards(good, devices):
+                with on_device(dev):
+                    split = split_dri(sub, frames, raws, nsegs, dev)
+                if split is None:
+                    return None
+                bad_pos, words, side = split
+                # bad: malformed restart structure
+                splits.append((sub, set(bad_pos), words, side, dev))
     else:
         with span("imgcodec.jpeg.index_scan"):
-            split = split_indexed(good, frames, raws, R, nsegs, device,
-                                  min_ok=max(2, _MIN_BATCH // 2))
-        if split is None:
-            return None
-        ok, bad, bad_scan, words, side = split
-        leftover.extend(bad_scan)
+            ok, bad_scan, scan = scan_indexed(good, frames, raws, R, nsegs)
+            if len(ok) < max(2, _MIN_BATCH // 2):
+                return None
+            leftover.extend(bad_scan)
+            for sub, dev in _shards(ok, devices):
+                with on_device(dev):
+                    splits.append((sub,) + pack_indexed(
+                        scan, sub, frames, R, nsegs, dev) + (dev,))
     R, _comp_map, tables = huffman_tables(f0, R)
-    words_d, side_d, tabs_d = upload(
-        [words, side, staged_tables(tables, device)], device)
-    tables_d, look_d = uploaded_tables(tabs_d, tables)
     mcus_x = -(-f0.width // (8 * f0.hmax))
     mcus_y = -(-f0.height // (8 * f0.vmax))
-    with span("imgcodec.jpeg.device_entropy"):
-        # K2 stores the stacks as K1 takes them: zigzag blocks, contiguous
-        coefs, err = decode_segments_into(
-            words_d, side_d, tables_d, look_d, R,
-            [(c.h, c.v) for c in f0.components], mcus_x, mcus_y, len(ok),
-            nsegs)
-        # the flags come back while the pixel stage runs
-        checks.append((ok, bad, nsegs) + _fetch(err, device))
-    imgs = _pixel_stage(f0, coefs, True, fancy, to_rgb, to_u8, bitexact)
-    for j, i in enumerate(ok):
-        if j in bad:
-            leftover.append(i)
-        else:
-            results[i] = DecodeResult(ProcessingStatus.SUCCESS, imgs[j])
-    _count(kind, len(ok) - len(bad))
+    for ok, bad, words, side, dev in splits:
+        with on_device(dev):
+            words_d, side_d, tabs_d = upload(
+                [words, side, staged_tables(tables, dev)], dev)
+            tables_d, look_d = uploaded_tables(tabs_d, tables)
+            with span("imgcodec.jpeg.device_entropy"):
+                # K2 stores the stacks as K1 takes them: zigzag blocks
+                coefs, err = decode_segments_into(
+                    words_d, side_d, tables_d, look_d, R,
+                    [(c.h, c.v) for c in f0.components], mcus_x, mcus_y,
+                    len(ok), nsegs)
+                # the flags come back while the pixel stage runs
+                checks.append((ok, bad, nsegs) + _fetch(err, dev))
+            imgs = _pixel_stage(f0, coefs, True, fancy, to_rgb, to_u8,
+                                bitexact)
+        for j, i in enumerate(ok):
+            if j in bad:
+                leftover.append(i)
+            else:
+                results[i] = DecodeResult(ProcessingStatus.SUCCESS, imgs[j])
+        _count(kind, len(ok) - len(bad))
     return leftover
 
 
@@ -343,20 +382,14 @@ def decode_batch_cuda(data_batch, params: DecodeParams, device="cuda",
     to_u8 = not params.allow_any_depth
     checks = []
     for group in groups.values():
-        bounds = shard_bounds(len(group), len(shard_devices))
-        for (lo, hi), dev in zip(bounds, shard_devices):
-            if lo == hi:
-                continue
-            idxs = group[lo:hi]
+        left = None
+        if device_entropy:
+            left = _try_device_entropy(group, frames, raws, results, fancy,
+                                       to_rgb, to_u8, bitexact,
+                                       shard_devices, checks)
+        for idxs, dev in _shards(group if left is None else left,
+                                 shard_devices):
             with on_device(dev):
-                if device_entropy:
-                    left = _try_device_entropy(idxs, frames, raws, results,
-                                               fancy, to_rgb, to_u8,
-                                               bitexact, dev, checks)
-                    if left is not None:
-                        if not left:
-                            continue
-                        idxs = left
                 _host_route(idxs, frames, raws, results, fancy, to_rgb,
                             to_u8, bitexact, dev, pool)
 

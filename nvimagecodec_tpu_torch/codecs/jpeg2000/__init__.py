@@ -89,10 +89,11 @@ class Jpeg2kHybridCudaDecoder(DecoderPlugin):
     the tests and the smoke run (true forces the torch stage on `device`,
     false keeps the IDWT on the host), not a tuning knob.
 
-    `mesh` is set by the scheduler for `Decoder(mesh=...)`: the device stage
-    then runs over the mesh (tiles or rows over "sp", `core.decode_j2k`)
-    unless device_pixel_stage is false, and never for an ROI request, as in
-    the reference (codecs/jpeg2000/__init__.py:88-91).
+    `mesh` is set by the scheduler for `Decoder(mesh=...)`: an image the
+    rule above sends to the device stage then runs over the mesh (tiles or
+    rows over "sp", `core.decode_j2k`); one it keeps on the host stays
+    there, so the size floor holds with a mesh too. Never for an ROI
+    request, as in the reference (codecs/jpeg2000/__init__.py:88-91).
 
     A stream the host stage rejects fails alone and goes on to the next
     decoder; a failure of the device stage is raised out of `decode_batch`
@@ -138,15 +139,14 @@ class Jpeg2kHybridCudaDecoder(DecoderPlugin):
                if params.enable_roi and params.region is not None
                and self.discard_levels == 0 else None)
 
-        mesh = (self.mesh if roi is None and self.device_pixel_stage
-                is not False else None)
-
         def one(data, info):
             raw = bytes(data)
+            device = None if roi is not None else self._stage_device(info)
+            # the mesh only for an image the device stage takes
             img = decode_j2k(
-                raw, num_threads=self.num_parallel_tiles,
-                device=None if roi is not None else self._stage_device(info),
-                discard_levels=self.discard_levels, region=roi, mesh=mesh)
+                raw, num_threads=self.num_parallel_tiles, device=device,
+                discard_levels=self.discard_levels, region=roi,
+                mesh=self.mesh if device is not None else None)
             # sYCC-tagged JP2 (the subsampled encodes): the upsampled YCbCr
             # goes back to RGB; 16-bit narrows unless any depth is allowed
             return _finish(img, jp2_colorspace(raw) == 18,

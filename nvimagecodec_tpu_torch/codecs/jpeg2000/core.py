@@ -870,11 +870,8 @@ def _run_device_stage(job: _DeviceJob, mesh=None) -> torch.Tensor:
     rows = sp and grid is None and cp.levels > 0 and origin == (0, 0)
     tiles = sp and grid is not None and (grid[0] * grid[1]) % sp == 0
     try:
-        if rows or tiles:  # each device copies its share of the buffer
-            add_count("imgcodec.jpeg2k.h2d_bytes",
-                      stage.flat.numel() * stage.flat.element_size()
-                      if device.type == "cuda" else 0)
-        else:
+        # with a mesh, each device copies its share of the host buffer
+        if not (rows or tiles):
             LL, bands = stage.upload(device)
         with span("imgcodec.jpeg2k.device_stage"):
             if rows:

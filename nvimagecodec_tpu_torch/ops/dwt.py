@@ -33,6 +33,8 @@ from typing import List, Tuple
 
 import torch
 
+from ..core.trace import add_count
+
 ALPHA = -1.586134342059924
 BETA = -0.052980118572961
 GAMMA = 0.882911075530934
@@ -261,6 +263,14 @@ def idwt2d(LL, bands, out_shape: Tuple[int, int], reversible: bool,
 # and copied to its own. Row shards are lists of tensors, one per device, in
 # row order.
 
+def to_device(t: torch.Tensor, dev) -> torch.Tensor:
+    """`t` on `dev`, copied without waiting; a copy from the host to a CUDA
+    device adds its bytes to the imgcodec.jpeg2k.h2d_bytes counter."""
+    if t.device.type == "cpu" and torch.device(dev).type == "cuda":
+        add_count("imgcodec.jpeg2k.h2d_bytes", t.numel() * t.element_size())
+    return t.to(dev, non_blocking=True)
+
+
 def _shift_right_halo(xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """y[k] = x[k-1] globally across the row shards `xs` (whole-sample
     symmetric at the global top edge: the first shard repeats its own first
@@ -344,7 +354,8 @@ def idwt2d_rows_sharded(LL, bands, out_shape: Tuple[int, int],
     first device.
 
     LL and bands (finest-first) may lie on any device, the host included:
-    each device receives only the rows it needs. Returns the image's row
+    each device receives only the rows it needs (`to_device`, which counts
+    the bytes each copy from the host moves). Returns the image's row
     blocks in order, one per device ([..., H/sp, W] each), or one block on
     the first device for the fallback. Bit-exact vs idwt2d for 5/3."""
     devs = mesh.axis_devices(axis_name)
@@ -354,8 +365,9 @@ def idwt2d_rows_sharded(LL, bands, out_shape: Tuple[int, int],
     dims = subband_dims(H, W, levels)
     if levels == 0 or dims[1][0] % sp or H % 2 or dims[0][0] != 2 * dims[1][0]:
         dev = devs[0]
-        return [idwt2d(LL.to(dev), [tuple(b.to(dev) for b in lvl)
-                                    for lvl in bands], out_shape, reversible)]
+        return [idwt2d(to_device(LL, dev), [
+            tuple(to_device(b, dev) for b in lvl) for lvl in bands],
+            out_shape, reversible)]
 
     def shardable(lev: int) -> bool:
         # its (equal-height) input subbands split evenly, its output is even
@@ -369,18 +381,18 @@ def idwt2d_rows_sharded(LL, bands, out_shape: Tuple[int, int],
 
     def rows(t: torch.Tensor, k: int, dev) -> torch.Tensor:
         per = t.shape[-2] // sp
-        return t.narrow(-2, k * per, per).to(dev, non_blocking=True)
+        return to_device(t.narrow(-2, k * per, per), dev)
 
     curs = []
     for k, dev in enumerate(devs):
         if m == levels:
             curs.append(rows(LL, k, dev))
             continue
-        cur = LL.to(dev, non_blocking=True)
+        cur = to_device(LL, dev)
         for lev in range(levels - 1, m - 1, -1):
             h, w = dims[lev]
-            cur = idwt2d_level(cur, *(b.to(dev, non_blocking=True)
-                                      for b in bands[lev]), h, w, reversible)
+            cur = idwt2d_level(cur, *(to_device(b, dev) for b in bands[lev]),
+                               h, w, reversible)
         curs.append(rows(cur, k, dev))  # replicated -> sharded handoff
     for lev in range(m - 1, -1, -1):
         HL, LH, HH = bands[lev]

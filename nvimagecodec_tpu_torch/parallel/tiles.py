@@ -24,11 +24,9 @@ from ..ops import dwt as dwt_ops
 from .mesh import Mesh, shard_bounds
 
 
-def idwt_tiles_batched(LL, bands, tile_shape: Tuple[int, int],
-                       reversible: bool) -> torch.Tensor:
-    """[T, ...] stacked tile subbands → [T, th, tw] pixel tiles: the DWT
-    ops are batch-agnostic, so the tile axis is a leading dimension."""
-    return dwt_ops.idwt2d(LL, bands, tile_shape, reversible)
+# the reference's name: the DWT ops are batch-agnostic, so [T, ...] stacked
+# tile subbands go through the inverse DWT with the tile axis leading
+idwt_tiles_batched = dwt_ops.idwt2d
 
 
 def idwt_tiles_sharded(LL, bands, tile_shape: Tuple[int, int],
@@ -36,16 +34,17 @@ def idwt_tiles_sharded(LL, bands, tile_shape: Tuple[int, int],
                        axis_name: str = "sp") -> List[torch.Tensor]:
     """The tile axis of LL [T, ...] and of every band split into contiguous
     shards over the `axis_name` devices; each device reconstructs its own
-    tiles from its own copy of their subbands, with no traffic between
+    tiles from its own copy of their subbands (`ops/dwt.to_device`, which
+    counts the bytes copied from the host), with no traffic between
     devices. Returns one [T_k, ..., th, tw] tensor per device, in tile
     order."""
     out = []
     devs = mesh.axis_devices(axis_name)
     for (lo, hi), dev in zip(shard_bounds(LL.shape[0], len(devs)), devs):
         def part(t):
-            return t[lo:hi].to(dev, non_blocking=True)
+            return dwt_ops.to_device(t[lo:hi], dev)
 
-        out.append(idwt_tiles_batched(
+        out.append(dwt_ops.idwt2d(
             part(LL), [tuple(part(b) for b in lvl) for lvl in bands],
             tile_shape, reversible))
     return out

@@ -407,6 +407,24 @@ def test_bucket_tail_gives_the_per_sample_bytes():
     assert alone == port_encode.encode_jpeg(img, params)
 
 
+def test_tf32_is_refused_on_a_cuda_device():
+    """TF32 no longer touches the encode: the card's fDCT+quant product is
+    `fdct_quant_blocks`, no matmul, so the encode no longer refuses
+    allow_tf32. With it on, the device route runs and gives the JAX
+    package's bytes (the card's half is in test_torch_gpu.py)."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    imgs = [make_photo(16, 16, seed=0), make_photo(40, 56, seed=1)]
+    params = port.EncodeParams(quality=85, chroma_subsampling="420")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = [r.data for r in be.encode_batch_cuda(imgs, params, "cpu")]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert not old  # PyTorch's default
+    rparams = ref.EncodeParams(quality=85, chroma_subsampling="420")
+    assert got == ref.Encoder().encode(imgs, "jpeg", rparams)
+
+
 def test_spans_of_the_device_route():
     trace.start_collect()
     try:

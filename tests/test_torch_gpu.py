@@ -469,6 +469,30 @@ def test_encoder_gpu_host_route_gives_the_cpu_bytes(cuda):
     assert got == want
 
 
+def test_encoder_gpu_refuses_tf32(cuda):
+    """The encode's product is fdct_quant_blocks, not a matmul, so TF32 no
+    longer needs refusing: with allow_tf32 on, encode_batch_cuda and the
+    Encoder give the bytes they give with it off."""
+    from nvimagecodec_tpu_torch.codecs.jpeg import batch_encode as be
+
+    _, tensors = _photos_on(cuda, n=8)
+    params = port.EncodeParams(quality=85, chroma_subsampling="420")
+
+    def batch():
+        return [r.data for r in be.encode_batch_cuda(tensors, params, cuda)]
+
+    want = batch()
+    assert None not in want
+    want_enc = port.Encoder(device="cuda").encode(tensors, "jpeg", params)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert batch() == want
+        assert port.Encoder(device="cuda").encode(tensors, "jpeg",
+                                                  params) == want_enc
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 @pytest.mark.parametrize("interp", ["bilinear", "bicubic", "lanczos"])
 @pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
 def test_resize_gpu_vs_cpu(cuda, interp, dtype):
@@ -765,6 +789,30 @@ def test_j2k_mesh_on_one_card_is_bit_exact(cuda):
             got = j2k.decode_j2k(data, device=None,
                                  mesh=_cuda_mesh(cuda, 1, sp))
             assert got.is_cuda and np.array_equal(got.cpu().numpy(), img)
+
+
+def test_j2k_mesh_counts_the_bytes_each_device_copies(cuda):
+    """imgcodec.jpeg2k.h2d_bytes on the sharded paths adds what each device
+    copies from the host: its tiles, or its rows, which sum to the
+    unsharded upload; and where coarse levels run replicated (7 levels of
+    256 rows over sp=4), their subbands once a device on top."""
+    from nvimagecodec_tpu_torch.core import trace
+
+    def h2d(data, mesh):
+        trace.start_collect()
+        j2k.decode_j2k(data, device=cuda if mesh is None else None,
+                       mesh=mesh)
+        torch.cuda.synchronize()
+        return trace.stop_collect()["counters"]["imgcodec.jpeg2k.h2d_bytes"]
+
+    img = make_photo(256, 256, seed=6)
+    for kw, more in ((dict(levels=5), False),
+                     (dict(levels=3, tile_size=64), False),
+                     (dict(levels=7), True)):
+        data = j2k.encode_j2k(img, reversible=True, **kw)
+        one = h2d(data, None)
+        got = h2d(data, _cuda_mesh(cuda, 1, 4))
+        assert got > one if more else got == one, (kw, got, one)
 
 
 def test_a_second_card_runs_its_own_shard(cuda):

@@ -189,10 +189,16 @@ def _photo_jpgs(n=8, h=40, w=56, **kw):
 def test_decoder_mesh_jpeg_dp_bit_exact(dp, n):
     """Decoder(mesh=...): each JPEG bucket splits over "dp" (a batch of 10
     over dp=4 gives shards of 3, 3, 2, 2) and equals the one-device decode
-    exactly, and, with bitexact, the JAX package's sharded decode."""
+    exactly, and, with bitexact, the JAX package's sharded decode. The
+    route is the unsharded decode's: idx for the 16 images over dp=8 (shards
+    of 2), the host route for the 10."""
     jpgs = (_photo_jpgs() * 2)[:n]
     want = port.Decoder(device="cpu").decode(jpgs)
+    before = dict(jb.ROUTES)
     got = port.Decoder(device="cpu", mesh=cpu_mesh(dp)).decode(jpgs)
+    route = "idx" if n >= jb._MIN_BATCH else "host"
+    assert {k: jb.ROUTES[k] - before[k] for k in before} == dict(
+        dict.fromkeys(before, 0), **{route: n})
     for a, b in zip(want, got):
         assert torch.equal(a.array, b.array)
     opt = f"cuda_jpeg_hybrid_decoder:{BITEXACT}"
@@ -235,15 +241,23 @@ def test_decode_j2k_mesh_tiles_and_rows_bit_exact():
 
 def test_decoder_mesh_j2k_and_9_7_rows():
     """Through Decoder(mesh=): the J2K plugin hands its mesh to decode_j2k
-    (not for an ROI request); 9/7 rows over sp=4 stay within 1 of the host
-    path."""
+    for an image its device-stage rule takes (forced here: on the CPU the
+    rule keeps every image on the host), not for one the rule keeps on the
+    host, nor for an ROI request; 9/7 rows over sp=4 stay within 1 of the
+    host path."""
     from nvimagecodec_tpu_torch.codecs.jpeg2000 import core as port_core
     from nvimagecodec_tpu_torch.core import trace
 
     img = make_photo(64, 64, seed=4)
     rev = port_core.encode_j2k(img, reversible=True, levels=3)
     irr = port_core.encode_j2k(img, reversible=False, quality=85, levels=3)
-    dec = port.Decoder(device="cpu", mesh=cpu_mesh(2, 4))
+    trace.start_collect()
+    host = port.Decoder(device="cpu", mesh=cpu_mesh(2, 4)).decode(rev)
+    assert "imgcodec.jpeg2k.row_shards" not in trace.stop_collect()[
+        "counters"]
+    assert torch.equal(torch.as_tensor(host.array), torch.from_numpy(img))
+    dec = port.Decoder(device="cpu", mesh=cpu_mesh(2, 4), options=(
+        "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=true"))
     trace.start_collect()
     got = dec.decode([rev, irr])
     seen = trace.stop_collect()["counters"]
@@ -299,29 +313,38 @@ def test_multihost_global_batch_single_process():
 
 
 def test_decoder_mesh_dp_device_entropy_composes(monkeypatch):
-    """Restart-interval streams with Decoder(mesh=): K2's route runs on
-    every dp shard (no quiet fallback to the host route) and the output is
-    bit-exact vs the one-device decode, and vs the JAX package's sharded
-    decode with bitexact."""
-    monkeypatch.setattr(jb, "_MIN_BATCH", 4)  # shards of 4 images
+    """Restart-interval streams with Decoder(mesh=): the 16-image bucket
+    takes K2's route as it does unsharded, and the route runs on every dp
+    shard (no quiet fallback to the host route, though each shard holds
+    fewer images than the route's floor); the output is bit-exact vs the
+    one-device decode, and vs the JAX package's sharded decode with
+    bitexact."""
     f0 = jb.parse_jpeg_structure(_photo_jpgs(1, 48, 64)[0])
     ri = -(-f0.width // (8 * f0.hmax))  # one MCU row per restart segment
     jpgs = _photo_jpgs(4, 48, 64, restart_interval=ri) * 4
+    assert len(jpgs) == jb._MIN_BATCH
     want = port.Decoder(device="cpu").decode(jpgs)
 
-    calls = []
+    calls, launches = [], []
     orig = jb._try_device_entropy
+    orig_k2 = jb.decode_segments_into
 
     def spy(idxs, *a, **kw):
         r = orig(idxs, *a, **kw)
         calls.append((len(idxs), r is not None and len(r) < len(idxs)))
         return r
 
+    def k2_spy(*a, **kw):
+        launches.append(a[8])  # the shard's image count
+        return orig_k2(*a, **kw)
+
     monkeypatch.setattr(jb, "_try_device_entropy", spy)
+    monkeypatch.setattr(jb, "decode_segments_into", k2_spy)
     before = dict(jb.ROUTES)
     got = port.Decoder(device="cpu", mesh=cpu_mesh(4)).decode(jpgs)
-    # every one of the 4 shards took the device route with all its images
-    assert calls == [(4, True)] * 4, calls
+    # the bucket took the device route with all its images, 4 on each shard
+    assert calls == [(16, True)], calls
+    assert launches == [4, 4, 4, 4], launches
     assert jb.ROUTES["dri"] - before["dri"] == 16
     assert jb.ROUTES["host"] == before["host"]
     for a, b in zip(want, got):
