@@ -44,7 +44,11 @@ kernels (launch counts set to 0 just before the path, read just after):
 
 The encode path's fDCT+quant product is the hand-written
 `fdct_quant_blocks` (csrc/fdct.cu), held against its plain version
-(`torch.matmul`) on every launch of the encode and mesh paths.
+(`torch.matmul`) on every launch of the encode, transcode and mesh paths;
+the encode phase also holds the 8 streams of `Encoder(device="cuda")` to the
+SHA-256 digest that tests/test_torch_gpu.py pins (`digest_ok`), and its
+times stand beside a copy-only floor and the FMA floor at the rate this
+card sustains (tools/fp32_peak.py).
 
 It checks the images and coefficients against the CPU and the native host
 decoder, holds each kernel against its plain PyTorch version on the card,
@@ -139,6 +143,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
     import numpy as np
 
     import nvimagecodec_tpu_torch as nic
@@ -412,6 +417,10 @@ def main() -> int:
          "ms": fdct["ms"], "plain_ms": fdct["plain_ms"],
          "bound_ms": fdct["bound_ms"], "bound_by": fdct["bound_by"],
          "library_ms": fdct["library_ms"],
+         "copy_floor_ms": fdct["copy_floor_ms"],
+         "fma_floor_ms": fdct["fma_floor_ms"],
+         "fma_tflops": fdct["fma_tflops"],
+         "digest_ok": True,  # encode_phase raises on another digest
          "launches_by_path": {"encode": enc_path["launches"]["FDCT"],
                               "transcode": trans["launches"]["FDCT"],
                               "mesh": mesh["launches"]["FDCT"]}},
@@ -1013,6 +1022,7 @@ def encode_phase(imgs, dec, params, dev):
     Returns the main bucket's frame, its launch counts and the inputs of
     its fdct_quant_blocks launches."""
     import torch
+    from test_torch_gpu import FDCT_STREAMS_SHA256, fdct_streams_digest
 
     import nvimagecodec_tpu_torch as nic
 
@@ -1026,6 +1036,15 @@ def encode_phase(imgs, dec, params, dev):
     phase("encode_path", text + f"; {sum(map(len, streams)) // len(streams)}"
           f" B mean; fdct_quant_blocks vs plain on every launch max |diff| "
           f"{f_err} on {f_share:.4%} of entries")
+    # the bytes of the kernel's first design, kept by every later one
+    digest, err, share = fdct_held(
+        lambda: fdct_streams_digest(nic.Encoder(device="cuda"), dev))
+    if digest != FDCT_STREAMS_SHA256:
+        raise RuntimeError(f"encode path: the 8 pinned streams digest to "
+                           f"{digest}, not {FDCT_STREAMS_SHA256}")
+    f_err, f_share = max(f_err, err), max(f_share, share)
+    phase("encode_path", f"8 streams of Encoder(device=\"cuda\") at q85 "
+          f"4:2:0 digest to the pinned {digest[:16]}...: digest_ok")
 
     def with_css(css):
         return nic.EncodeParams(
@@ -1295,8 +1314,12 @@ def fdct_times(f_in, card):
     same product (the library call, used nowhere in the port) and its bound,
     the larger of the bytes (samples read, int32 coefficients written, the
     matrix, once each over 3.35 TB/s) and 2 * 64 * 64 fp32 operations a block
-    over 67 TFLOP/s."""
+    over 67 TFLOP/s; and beside two floors: a copy-only one (`copy_` of the
+    same float32 samples into an int32 buffer, the kernel's bytes without its
+    arithmetic) and its FMAs at the rate this card sustains from registers
+    (tools/fp32_peak.py)."""
     import torch
+    from fp32_peak import fma_tflops
 
     from nvimagecodec_tpu_torch.ops.kernels import (
         fdct_quant_blocks,
@@ -1307,23 +1330,33 @@ def fdct_times(f_in, card):
              for x, M in f_in)
     plain_ms = sum(cuda_ms(lambda i, x=x, M=M: fdct_quant_blocks_plain(x, M),
                            5) for x, M in f_in)
-    lib_ms = 0.0
+    lib_ms = copy_ms = 0.0
     for x, M in f_in:
         mt = M.T.contiguous()
         lib_ms += cuda_ms(lambda i, x=x, mt=mt: torch.matmul(x, mt), 20)
+        dst = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+        copy_ms += cuda_ms(lambda i, x=x, dst=dst: dst.copy_(x), 20)
+        del dst
     blocks = sum(x.numel() // 64 for x, _ in f_in)
     bytes_ms = (sum(bytes_bound_ms(x, M) for x, M in f_in)
                 + blocks * 64 * 4 / HBM_BYTES_PER_S * 1e3)
-    ops_ms = blocks * 2 * 64 * 64 / FP32_FLOPS * 1e3
+    ops = blocks * 2 * 64 * 64
+    ops_ms = ops / FP32_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    tflops = max(r[2] for r in fma_tflops())
+    fma_ms = ops / (tflops * 1e12) * 1e3
     phase("times", f"on {card}: fdct_quant_blocks at the encode path's "
           f"shapes ({', '.join(str(tuple(x.shape)) for x, _ in f_in)}; "
           f"{blocks} blocks) {ms:.4f} ms for the 3 launches together; "
           f"torch.matmul {lib_ms:.4f}; plain {plain_ms:.4f}; bound "
-          f"{bound_ms:.4f}, bytes {bytes_ms:.4f} / operations {ops_ms:.4f}")
+          f"{bound_ms:.4f}, bytes {bytes_ms:.4f} / operations {ops_ms:.4f}; "
+          f"copy-only floor {copy_ms:.4f}; FMA floor {fma_ms:.4f} at the "
+          f"measured {tflops:.2f} TFLOP/s")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "copy_floor_ms": copy_ms, "fma_floor_ms": fma_ms,
+            "fma_tflops": tflops}
 
 
 def same_images(got, want, label):

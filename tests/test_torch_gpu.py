@@ -4,14 +4,17 @@ route on the GPU against the same on the CPU, and the encode device stage,
 the Encoder, resize, the input pipeline and the command line on the GPU
 against the same on the CPU; and the JPEG2000 device pixel stage, the torch
 DWT and the J2K Decoder / Encoder on the GPU against the same on the CPU;
-and the multi-device layer: fdct_quant_blocks against its plain version,
-an image encoded alone against the same image in a batch, Decoder(mesh=),
+and fdct_quant_blocks: against its plain version, against the digests of
+its pinned bits, at the edges of its tiling and from an unaligned source;
+and the multi-device layer: an image encoded alone against the same image in a batch, Decoder(mesh=),
 GenericEncoder(mesh=) and decode_j2k(mesh=) on meshes of the one card
 (and a shard on cuda:1 where a second card is present).
 They need a CUDA device and skip without one. On the GPU machine:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +26,7 @@ from nvimagecodec_tpu_torch.codecs.jpeg.headers import parse_jpeg_structure
 from nvimagecodec_tpu_torch.codecs.jpeg.pixel import ZIGZAG_NAT
 from nvimagecodec_tpu_torch.codecs.jpeg.tables import (
     STD_CHROMA_QUANT,
+    STD_LUMA_QUANT,
     quality_scaled_quant,
 )
 from nvimagecodec_tpu_torch.codecs.jpeg import batch as jb
@@ -731,6 +735,91 @@ def test_fdct_kernel_vs_plain_and_batch_independent(cuda):
     for lo, n in ((0, 1), (3, 7), (129, 1000)):
         assert torch.equal(kernels.fdct_quant_blocks(
             x[lo:lo + n].contiguous(), M), got[lo:lo + n])
+
+
+# The bits of fdct_quant_blocks on the card, pinned. Both digests were taken
+# from the kernel's first design (one staged tile at a time in a grid-stride
+# loop); every later design keeps the fixed fmaf order and must give them.
+FDCT_BLOCKS_SHA256 = ("8549488e15ddb8bf795a84860b346e47"
+                      "44e3b4f72870fc14ea79f5f8b33f3b04")
+FDCT_STREAMS_SHA256 = ("2199f3fb32ec93643442c3e98bd6a8bd"
+                       "411f849a4f6c9489360e54d5fa8c7d99")
+# blocks of a launch that wraps the kernel's ring of tile stages once on
+# every SM of an H100, plus one: 132 SMs x 4 stages x 128-block tiles + 1
+FDCT_RING_BLOCKS = 132 * 4 * 128 + 1
+
+
+def fdct_digest_inputs(device):
+    """[(samples, matrix)] of the blocks digest: 5000 8-bit blocks (integers
+    in [-128, 128)) then 5000 12-bit ones ([-2048, 2048)), both from
+    default_rng(12), each under the chroma q85 and the luma q50 matrix."""
+    from nvimagecodec_tpu_torch.codecs.jpeg.encode import quant_matrix
+
+    rng = np.random.default_rng(12)
+    xs = [torch.from_numpy(rng.integers(lo, -lo, (5000, 64))
+                           .astype(np.float32)).to(device)
+          for lo in (-128, -2048)]
+    Ms = [quant_matrix(quality_scaled_quant(STD_CHROMA_QUANT, 85), device),
+          quant_matrix(quality_scaled_quant(STD_LUMA_QUANT, 50), device)]
+    return [(x, M) for M in Ms for x in xs]
+
+
+def fdct_blocks_digest(fdct, device) -> str:
+    """SHA-256 of fdct(x, M)'s int32 coefficients over `fdct_digest_inputs`,
+    in order."""
+    h = hashlib.sha256()
+    for x, M in fdct_digest_inputs(device):
+        h.update(fdct(x, M).cpu().numpy().astype("<i4").tobytes())
+    return h.hexdigest()
+
+
+def fdct_streams_digest(encoder, device) -> str:
+    """SHA-256 of the 8 JPEG streams `encoder` gives for `_photos_on(n=8)` at
+    q85 4:2:0, each after its length in 4 little-endian bytes."""
+    _photos, tensors = _photos_on(device, n=8)
+    params = port.EncodeParams(quality=85, chroma_subsampling="420")
+    h = hashlib.sha256()
+    for data in encoder.encode(tensors, "jpeg", params):
+        h.update(len(data).to_bytes(4, "little") + data)
+    return h.hexdigest()
+
+
+def test_fdct_gives_the_pinned_coefficients(cuda):
+    assert fdct_blocks_digest(kernels.fdct_quant_blocks,
+                              cuda) == FDCT_BLOCKS_SHA256
+
+
+def test_encoder_gives_the_pinned_streams(cuda):
+    assert fdct_streams_digest(port.Encoder(device="cuda"),
+                               cuda) == FDCT_STREAMS_SHA256
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, FDCT_RING_BLOCKS])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_fdct_edges_equal_a_slice_of_a_larger_launch(cuda, n, aligned):
+    """A launch of n blocks gives the coefficients those blocks get inside a
+    larger launch, from a 16-byte aligned source or from one 4 bytes past
+    it, and stays within 1 of the plain version on fewer than 1% of
+    entries."""
+    from nvimagecodec_tpu_torch.codecs.jpeg.encode import quant_matrix
+
+    rng = np.random.default_rng(n)
+    big = max(5000, n + 1000)
+    x = torch.from_numpy(rng.integers(-128, 128, (big, 64))
+                         .astype(np.float32)).to(cuda)
+    M = quant_matrix(quality_scaled_quant(STD_LUMA_QUANT, 85), cuda)
+    whole = kernels.fdct_quant_blocks(x, M)
+    lo = 3
+    part = x[lo:lo + n].contiguous()
+    if not aligned:
+        buf = torch.empty(n * 64 + 1, dtype=torch.float32, device=cuda)
+        part = buf[1:].view(n, 64)
+        part.copy_(x[lo:lo + n])
+        assert part.data_ptr() % 16 == 4
+    got = kernels.fdct_quant_blocks(part, M)
+    assert torch.equal(got, whole[lo:lo + n])
+    d = (got - kernels.fdct_quant_blocks_plain(part, M)).abs()
+    assert int(d.max()) <= 1 and float((d > 0).double().mean()) < 0.01
 
 
 def _cuda_mesh(cuda, dp=1, sp=1):

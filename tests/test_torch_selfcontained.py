@@ -18,6 +18,7 @@ FILES = sorted(
               recursive=True)
 ) + ["chip_smoke.py", "tools/profile_torch_decode.py",
      "tools/profile_torch_encode.py", "tools/bench_idct.py",
+     "tools/bench_fdct.py",
      "tools/bench_entropy.py", "tools/fp32_peak.py",
      "tools/profile_torch_j2k.py"]
 

@@ -8,6 +8,8 @@ keeps an 8 x 8 tile of accumulators in registers and does nothing but
 and 8 CTAs of 128 threads an SM, and prints the rate beside the card's name,
 power limit and clock. It is the ceiling that a kernel of fp32 FMAs such as
 K1 (csrc/idct.cu) can be held against, beside the data sheet's peak.
+`fma_tflops()` is the same measurement for other scripts
+(tools/bench_fdct.py, chip_smoke.py): the FMA floor of fdct_quant_blocks.
 """
 from __future__ import annotations
 
@@ -15,7 +17,6 @@ import ctypes
 import os
 import subprocess
 import sys
-import tempfile
 
 SOURCE = r"""
 #include <cuda_runtime.h>
@@ -53,40 +54,40 @@ def smi(query: str) -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def main() -> int:
+def fma_tflops(per_sm=(1, 2, 3, 4, 8), iters: int = 20000):
+    """[(CTAs an SM, ms, TFLOP/s)] of the register-only FMA kernel on the
+    current CUDA device, one timed launch each after a warm-up. Builds the
+    kernel into nvimagecodec_tpu_torch/build/."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("fp32_peak: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
     from nvimagecodec_tpu_torch import _build
 
-    print(smi("name,power.limit"), flush=True)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    with tempfile.TemporaryDirectory() as d:
-        src, so = os.path.join(d, "fma_only.cu"), os.path.join(d, "fma.so")
-        with open(src, "w") as f:
-            f.write(SOURCE)
-        subprocess.run([_build._nvcc(), "-gencode", _build._ARCH, "-O3",
-                        "-shared", "-Xcompiler", "-fPIC", src, "-o", so],
-                       check=True)
-        L = ctypes.CDLL(so)
+    os.makedirs(_build._BUILD, exist_ok=True)
+    src = os.path.join(_build._BUILD, "fma_only.cu")
+    so = os.path.join(_build._BUILD, f"libfma_only.{os.getpid()}.so")
+    with open(src, "w") as f:
+        f.write(SOURCE)
+    subprocess.run([_build._nvcc(), "-gencode", _build._ARCH, "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", src, "-o", so],
+                   check=True)
+    L = ctypes.CDLL(so)
+    os.remove(so)
     L.run_fma_only.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                ctypes.c_void_p]
     L.run_fma_only.restype = ctypes.c_int
-    out = torch.empty(sms * 8 * 128, device="cuda")
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    out = torch.empty(sms * max(per_sm) * 128, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    iters = 20000
 
     def launch(ctas):
         rc = L.run_fma_only(out.data_ptr(), ctas, iters, stream)
         if rc != 0:
             raise RuntimeError(f"fma_only launch: CUDA error {rc}")
 
-    for per_sm in (1, 2, 3, 4, 8):
-        ctas = sms * per_sm
+    rows = []
+    for k in per_sm:
+        ctas = sms * k
         launch(ctas)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -96,7 +97,21 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end)
-        tflops = ctas * 128 * iters * 64 * 2 / ms / 1e9
+        rows.append((k, ms, ctas * 128 * iters * 64 * 2 / ms / 1e9))
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("fp32_peak: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+    print(smi("name,power.limit"), flush=True)
+    for per_sm, ms, tflops in fma_tflops():
         print(f"{per_sm} CTAs/SM: {ms:.4f} ms, {tflops:.2f} TFLOP/s fp32 "
               f"(clocks.sm, power.draw: {smi('clocks.sm,power.draw')})",
               flush=True)
