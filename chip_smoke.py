@@ -45,8 +45,9 @@ kernels (launch counts set to 0 just before the path, read just after):
 The encode path's fDCT+quant product is the hand-written
 `fdct_quant_blocks` (csrc/fdct.cu), held against its plain version
 (`torch.matmul`) on every launch of the encode, transcode and mesh paths;
-the encode phase also holds the 8 streams of `Encoder(device="cuda")` to the
-SHA-256 digest that tests/test_torch_gpu.py pins (`digest_ok`), and its
+the encode phase also holds the 8 streams of `Encoder(device="cuda")`, run
+through the kernel, and the kernel's coefficients on seeded blocks to the
+SHA-256 digests that tests/test_torch_gpu.py pins (`digest_ok`), and its
 times stand beside a copy-only floor and the FMA floor at the rate this
 card sustains (tools/fp32_peak.py).
 
@@ -420,7 +421,7 @@ def main() -> int:
          "copy_floor_ms": fdct["copy_floor_ms"],
          "fma_floor_ms": fdct["fma_floor_ms"],
          "fma_tflops": fdct["fma_tflops"],
-         "digest_ok": True,  # encode_phase raises on another digest
+         "digest_ok": enc_path["digest_ok"],
          "launches_by_path": {"encode": enc_path["launches"]["FDCT"],
                               "transcode": trans["launches"]["FDCT"],
                               "mesh": mesh["launches"]["FDCT"]}},
@@ -1019,12 +1020,18 @@ def encode_phase(imgs, dec, params, dev):
     `Encoder(device="cuda")` with the GPU backend only: the full 4:2:0
     bucket, then 8-image 4:4:4, 4:2:2, gray and 12-bit (uint16) buckets,
     fdct_quant_blocks held against its plain version on every launch.
-    Returns the main bucket's frame, its launch counts and the inputs of
-    its fdct_quant_blocks launches."""
+    Returns the main bucket's frame, its launch counts, the inputs of its
+    fdct_quant_blocks launches and whether both pinned digests matched."""
     import torch
-    from test_torch_gpu import FDCT_STREAMS_SHA256, fdct_streams_digest
+    from test_torch_gpu import (
+        FDCT_BLOCKS_SHA256,
+        FDCT_STREAMS_SHA256,
+        fdct_blocks_digest,
+        fdct_streams_digest,
+    )
 
     import nvimagecodec_tpu_torch as nic
+    from nvimagecodec_tpu_torch.ops import kernels
 
     enc = nic.Encoder(device="cuda",
                       backends=[nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)])
@@ -1036,15 +1043,29 @@ def encode_phase(imgs, dec, params, dev):
     phase("encode_path", text + f"; {sum(map(len, streams)) // len(streams)}"
           f" B mean; fdct_quant_blocks vs plain on every launch max |diff| "
           f"{f_err} on {f_share:.4%} of entries")
-    # the bytes of the kernel's first design, kept by every later one
+    # the bits of the kernel's first design, kept by every later one: the
+    # streams, which must come through the kernel, and the coefficients of
+    # seeded blocks, which tell one summation order from another
+    kernels.fdct_quant_blocks.launches = 0
     digest, err, share = fdct_held(
         lambda: fdct_streams_digest(nic.Encoder(device="cuda"), dev))
-    if digest != FDCT_STREAMS_SHA256:
-        raise RuntimeError(f"encode path: the 8 pinned streams digest to "
-                           f"{digest}, not {FDCT_STREAMS_SHA256}")
+    streams_launches = kernels.fdct_quant_blocks.launches
+    if streams_launches == 0:
+        raise RuntimeError("encode path: the 8 pinned streams were encoded "
+                           "without a fdct_quant_blocks launch")
     f_err, f_share = max(f_err, err), max(f_share, share)
+    blocks_digest = fdct_blocks_digest(kernels.fdct_quant_blocks, dev)
+    digest_ok = (digest == FDCT_STREAMS_SHA256
+                 and blocks_digest == FDCT_BLOCKS_SHA256)
+    if not digest_ok:
+        raise RuntimeError(
+            f"encode path: the 8 pinned streams digest to {digest} (pinned "
+            f"{FDCT_STREAMS_SHA256}), the seeded blocks to {blocks_digest} "
+            f"(pinned {FDCT_BLOCKS_SHA256})")
     phase("encode_path", f"8 streams of Encoder(device=\"cuda\") at q85 "
-          f"4:2:0 digest to the pinned {digest[:16]}...: digest_ok")
+          f"4:2:0 ({streams_launches} fdct_quant_blocks launches) digest to "
+          f"the pinned {digest[:16]}..., the kernel's seeded blocks to the "
+          f"pinned {blocks_digest[:16]}...: digest_ok {digest_ok}")
 
     def with_css(css):
         return nic.EncodeParams(
@@ -1067,7 +1088,8 @@ def encode_phase(imgs, dec, params, dev):
         phase("encode_path", text)
     # the main encode's three launches come first (the checks follow it)
     return {"frame": frame, "launches": launches, "fdct_err": f_err,
-            "fdct_share": f_share, "fdct_in": keep[:len(frame.components)]}
+            "fdct_share": f_share, "fdct_in": keep[:len(frame.components)],
+            "digest_ok": digest_ok}
 
 
 def transcode_batches(jpgs):

@@ -42,31 +42,20 @@
 // - a stage goes back to the producer as soon as its samples are read,
 //   before the results leave as 16-byte stores, eight lanes on 128
 //   contiguous bytes.
-// FDCT_GROUPS, FDCT_STAGES and FDCT_PAD override the geometry for
-// tools/bench_fdct.py's --variant sweeps. PERF.md holds the kernel's time
-// beside both floors, a copy-only floor and torch.matmul.
+// PERF.md holds the kernel's time beside both floors, a copy-only floor and
+// torch.matmul, and the readings of the other geometries that were tried.
 
 #include <cstdint>
 #include <cuda_runtime.h>
-
-#ifndef FDCT_GROUPS
-#define FDCT_GROUPS 2
-#endif
-#ifndef FDCT_STAGES
-#define FDCT_STAGES 4
-#endif
-#ifndef FDCT_PAD
-#define FDCT_PAD 4
-#endif
 
 namespace {
 
 constexpr int kTileRows = 128;       // blocks in a tile
 constexpr int kGroupThreads = 128;   // 4 warps x (32 blocks x 64 coefficients)
-constexpr int kGroups = FDCT_GROUPS; // consumer warpgroups a CTA
-constexpr int kStages = FDCT_STAGES; // tiles in the ring
+constexpr int kGroups = 2;           // consumer warpgroups a CTA
+constexpr int kStages = 4;           // tiles in the ring
 constexpr int kChunkRows = 32;       // rows a bulk copy brings
-constexpr int kChunkPad = FDCT_PAD;  // floats after each chunk
+constexpr int kChunkPad = 4;         // floats after each chunk
 constexpr int kChunkFloats = kChunkRows * 64 + kChunkPad;
 constexpr int kMStride = 68;         // floats between rows of M transposed
 constexpr int kConsumers = kGroups * kGroupThreads;
@@ -75,9 +64,6 @@ constexpr int kStageFloats = kTileRows / kChunkRows * kChunkFloats;
 constexpr int kSmemBytes = kStages * kStageFloats * 4  // the ring
                            + 64 * kMStride * 4         // M transposed
                            + 2 * kStages * 8;          // full, empty
-// a barrier wait this long means a fault of the kernel: trap, so the launch
-// fails instead of hanging
-constexpr unsigned long long kHangNs = 4000000000ull;
 
 static_assert(kStages >= 3 && kStages % kGroups == 0,
               "a ring of 3 or more stages, each serving one group");
@@ -119,18 +105,10 @@ __device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
   return done != 0;
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
 // Wait for the completion of the barrier's phase of this parity.
 __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > kHangNs) __trap();
+  while (!mbar_try_wait(bar, parity)) {
+  }
 }
 
 // TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)

@@ -745,7 +745,8 @@ FDCT_BLOCKS_SHA256 = ("8549488e15ddb8bf795a84860b346e47"
 FDCT_STREAMS_SHA256 = ("2199f3fb32ec93643442c3e98bd6a8bd"
                        "411f849a4f6c9489360e54d5fa8c7d99")
 # blocks of a launch that wraps the kernel's ring of tile stages once on
-# every SM of an H100, plus one: 132 SMs x 4 stages x 128-block tiles + 1
+# every SM of an H100, plus one: 132 SMs x 4 stages (kStages in
+# csrc/fdct.cu) x 128-block tiles + 1
 FDCT_RING_BLOCKS = 132 * 4 * 128 + 1
 
 

@@ -2,7 +2,7 @@
 GPU: build, check, time.
 
     python3 tools/bench_fdct.py [--images 256] [--reps 20]
-                                [--variant [FILE.cu][:NAME=VALUE,...]] ...
+                                [--variant FILE.cu] ...
 
 Needs one CUDA device and nvcc. It prints the card's name and power limit,
 what ptxas says of the kernel (registers, shared memory, spills), then
@@ -25,10 +25,9 @@ what ptxas says of the kernel (registers, shared memory, spills), then
   rate `tools/fp32_peak.py` measures on this card; and the bound that
   chip_smoke.py reports (bytes, or operations over 67 TFLOP/s).
 
-Each `--variant` builds another copy of the kernel (another source file,
-such as the parent commit's, or csrc/fdct.cu with its FDCT_* macros set)
-into its own library and runs the same checks and times beside the built
-kernel, in turns. The last line is one JSON object with the numbers. Any
+Each `--variant` builds another source of the kernel (the parent commit's,
+or an edited copy of csrc/fdct.cu) into its own library and runs the same
+checks and times beside the built kernel, in turns. The last line is one JSON object with the numbers. Any
 failed check raises.
 """
 from __future__ import annotations
@@ -48,29 +47,22 @@ SPIN_CYCLES_PER_MS = 2.0e6  # torch.cuda._sleep counts the card's clock
 SOURCE = os.path.join(ROOT, "nvimagecodec_tpu_torch", "csrc", "fdct.cu")
 
 
-def parse_variant(spec: str):
-    """'[file.cu][:NAME=VALUE,...]' → (source path, ['-DNAME=VALUE', ...])."""
-    src, _, defs = spec.partition(":")
-    return (os.path.abspath(src) if src else SOURCE,
-            [f"-D{d}" for d in defs.split(",") if d])
-
-
-def ptxas(nvcc, arch, src, defines) -> str:
+def ptxas(nvcc, arch, src) -> str:
     r = subprocess.run([nvcc, "-gencode", arch, "-std=c++17", "-O3",
-                        "-Xptxas", "-v", *defines, "-c", src, "-o",
-                        os.devnull], capture_output=True, text=True)
+                        "-Xptxas", "-v", "-c", src, "-o", os.devnull],
+                       capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"{src} {defines} does not compile:\n{r.stderr}")
+        raise RuntimeError(f"{src} does not compile:\n{r.stderr}")
     return r.stderr.strip()
 
 
-def build_variant(nvcc, arch, build_dir, tag, src, defines):
+def build_variant(nvcc, arch, build_dir, tag, src):
     so = os.path.join(build_dir, f"libfdct_variant_{tag}.{os.getpid()}.so")
     r = subprocess.run([nvcc, "-gencode", arch, "-std=c++17", "-O3",
-                        "-shared", "-Xcompiler", "-fPIC", *defines, src,
-                        "-o", so], capture_output=True, text=True)
+                        "-shared", "-Xcompiler", "-fPIC", src, "-o", so],
+                       capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"{src} {defines} does not build:\n{r.stderr}")
+        raise RuntimeError(f"{src} does not build:\n{r.stderr}")
     L = ctypes.CDLL(so)
     os.remove(so)
     vp = ctypes.c_void_p
@@ -120,12 +112,11 @@ def main() -> int:
     print(card, flush=True)
 
     nvcc = _build._nvcc()
-    variants = [("built", SOURCE, [])] + [
-        (f"v{i}", *parse_variant(s)) for i, s in enumerate(args.variant, 1)]
-    for name, src, defines in variants:
-        print(f"ptxas -v, {name} ({os.path.relpath(src, ROOT)} "
-              f"{' '.join(defines)}):\n"
-              + ptxas(nvcc, _build._ARCH, src, defines), flush=True)
+    variants = [("built", SOURCE)] + [
+        (f"v{i}", os.path.abspath(s)) for i, s in enumerate(args.variant, 1)]
+    for name, src in variants:
+        print(f"ptxas -v, {name} ({os.path.relpath(src, ROOT)}):\n"
+              + ptxas(nvcc, _build._ARCH, src), flush=True)
     secs = _build.build()
     print(f"build: {secs:.2f} s", flush=True)
     os.makedirs(_build._BUILD, exist_ok=True)
@@ -250,8 +241,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({
         "card": card, "images": B, "blocks": blocks,
-        "variants": {n: " ".join([os.path.relpath(s, ROOT), *d])
-                     for n, s, d in variants},
+        "variants": {n: os.path.relpath(s, ROOT) for n, s in variants},
         "ms": rounds, "plain_ms": plain_ms, "library_ms": lib_ms,
         "copy_floor_ms": copy_ms, "bytes_floor_ms": bytes_ms,
         "fma_floor_ms": fma_ms, "fma_tflops": rate, "bound_ms": bound_ms,
