@@ -40,7 +40,9 @@ kernels (launch counts set to 0 just before the path, read just after):
   copied between shards) and its 16-tile grid over sp=4 (tiles) equal the
   unsharded decode; `GenericEncoder(mesh=dp2)` gives the unsharded bytes,
   and an image encoded alone the bytes it gets inside the 256-image batch.
-  One card covers only meshes whose devices repeat that card.
+  One card covers only meshes whose devices repeat that card;
+- bench: `bench_torch.py --quick --device cuda`, each configuration in a
+  process of its own, must exit 0 with a last line saying "correct": true.
 
 The encode path's fDCT+quant product is the hand-written
 `fdct_quant_blocks` (csrc/fdct.cu), held against its plain version
@@ -366,6 +368,9 @@ def main() -> int:
     j2k_times(j2k, dev, card)
     mesh_times(jpgs, mesh["decoder"], card)
 
+    # 16) the port's bench, at its quick size, in processes of its own
+    bench_phase()
+
     loaded = [m for m in sys.modules
               if m == "jax" or m.split(".")[0] == "nvimagecodec_tpu"]
     if loaded:
@@ -430,6 +435,29 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def bench_phase():
+    """`bench_torch.py --quick --device cuda` as a user would run it: exit
+    code 0 and a last line that parses with "correct": true."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench_torch.py"), "--quick",
+         "--device", "cuda"], capture_output=True, text=True, cwd=ROOT,
+        timeout=600)
+    lines = r.stdout.strip().splitlines()
+    try:
+        got = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        got = {}
+    if r.returncode != 0 or got.get("correct") is not True:
+        raise RuntimeError(f"bench_torch.py --quick: exit code "
+                           f"{r.returncode}, last line {lines[-1:]}; "
+                           f"{r.stderr[-2000:]}")
+    phase("bench", f"bench_torch.py --quick --device cuda: exit code 0 in "
+          f"{time.perf_counter() - t0:.1f} s, correct true, "
+          f"{got['attempted']} samples, {got['failures']} failures, "
+          f"{len(lines[-1])} characters; kernels {got['kernels']}")
 
 
 def counts_zero():

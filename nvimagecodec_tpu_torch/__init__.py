@@ -50,8 +50,10 @@ from .codecs.webp_anim import (  # noqa: F401
 from .codecs import port_registry  # noqa: F401
 from .api import Decoder, Encoder  # noqa: F401
 from .image import Image, as_image, as_images, from_dlpack  # noqa: F401
+from .codecs.jpeg.batch import configure_host_pool  # noqa: F401
 
 __all__ = [
+    "configure_host_pool",
     "__version__",
     "decode_webp_animation",
     "encode_webp_animation",

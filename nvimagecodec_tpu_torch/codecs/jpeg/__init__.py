@@ -30,7 +30,7 @@ from ...core.interfaces import (
     EncodeResult,
     EncoderPlugin,
 )
-from ...core.options import get_bool
+from ...core.options import get_bool, get_int
 from ...core.types import BackendKind, ColorSpec, Priority, ProcessingStatus
 from .headers import JpegFrame, parse_jpeg_structure
 from .pixel import assemble_image_i32, cmyk_to_rgb_i32, idct_planes
@@ -177,21 +177,34 @@ class _JpegDecoderBase(DecoderPlugin):
 
 class JpegHybridCudaDecoder(_JpegDecoderBase):
     """Batched decode on `device` (a CUDA device, or the CPU with the
-    kernels' plain versions). Options: device, fancy_upsampling, bitexact.
-    `mesh` is set by the scheduler for `Decoder(mesh=...)`: buckets shard
-    over its "dp" devices."""
+    kernels' plain versions). Options: device, fancy_upsampling, bitexact,
+    device_entropy (false keeps every bucket on the host entropy route, the
+    JAX package's TIC_NO_DEVICE_ENTROPY), and host_pool_mb /
+    host_pool_per_key_cap, accepted for the JAX package's sake and handed
+    to `batch.configure_host_pool`, which does nothing. `mesh` is set by the
+    scheduler for `Decoder(mesh=...)`: buckets shard over its "dp"
+    devices."""
 
     plugin_id = "cuda_jpeg_hybrid_decoder"
     backend_kind = BackendKind.HYBRID_CPU_GPU
     priority = Priority.HIGH
     fancy_upsampling = True
     device = torch.device("cuda")
+    device_entropy = True
     mesh = None
 
     def set_options(self, opts) -> None:
+        from .batch import configure_host_pool
+
         self.device = torch.device(opts.get("device", "cuda"))
         self.fancy_upsampling = get_bool(opts, "fancy_upsampling", True)
         self.bitexact = get_bool(opts, "bitexact", False)
+        self.device_entropy = get_bool(opts, "device_entropy", True)
+        pool_mb = get_int(opts, "host_pool_mb", 0)
+        pool_cap = get_int(opts, "host_pool_per_key_cap", 0)
+        if pool_mb or pool_cap:
+            configure_host_pool(max_mb=pool_mb or None,
+                                per_key_cap=pool_cap or None)
 
     def decode_batch(self, data_batch, info_batch,
                      params) -> List[DecodeResult]:
@@ -200,7 +213,9 @@ class JpegHybridCudaDecoder(_JpegDecoderBase):
 
         return decode_batch_cuda(data_batch, params, self.device,
                                  fancy=self.fancy_upsampling,
-                                 bitexact=self.bitexact, mesh=self.mesh)
+                                 bitexact=self.bitexact,
+                                 device_entropy=self.device_entropy,
+                                 mesh=self.mesh)
 
 
 class JpegCpuDecoder(_JpegDecoderBase):

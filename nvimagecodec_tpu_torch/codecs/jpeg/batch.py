@@ -102,6 +102,31 @@ def _shared_pool(name: str, workers: int) -> ThreadPoolExecutor:
         return p
 
 
+def configure_host_pool(max_mb: int = None, per_key_cap: int = None,
+                        alloc=None) -> None:
+    """Does nothing: kept with the JAX package's signature so that its
+    callers run unchanged, and checks its arguments. The JAX package keeps
+    a pool of host staging buffers for its uint8 wire; here PyTorch's
+    caching host allocator stages the uploads (pinned memory, reused once
+    the copies that read it have completed), and there is no pool to
+    configure.
+
+    max_mb and per_key_cap: a non-negative int or None; alloc: a callable
+    (shape, dtype) -> array, or None. Anything else raises TypeError or
+    ValueError."""
+    for name, value in (("max_mb", max_mb), ("per_key_cap", per_key_cap)):
+        if value is None:
+            continue
+        if isinstance(value, bool) or not isinstance(value, (int, np.integer)):
+            raise TypeError(f"configure_host_pool: {name} must be an int or "
+                            f"None, not {type(value).__name__}")
+        if value < 0:
+            raise ValueError(f"configure_host_pool: {name} must be >= 0, "
+                             f"not {value}")
+    if alloc is not None and not callable(alloc):
+        raise TypeError("configure_host_pool: alloc must be callable or None")
+
+
 def _fetch(t: torch.Tensor, device):
     """Start a device-to-host copy of a small tensor. Returns (host tensor,
     event to wait on before reading it; None on the CPU)."""

@@ -225,6 +225,62 @@ def test_flagged_lanes_are_reissued_to_host_route(bucket, monkeypatch):
         assert _diff(a, b) <= 1
 
 
+@pytest.mark.parametrize("restart, route", [(0, "idx"), (9, "dri")])
+def test_device_entropy_option_keeps_every_sample_on_the_host_route(
+        restart, route, monkeypatch):
+    """`cuda_jpeg_hybrid_decoder:device_entropy=false` is the JAX package's
+    TIC_NO_DEVICE_ENTROPY: every sample of a bucket the idx route (no
+    restart markers) or the dri route (one restart interval a row of 9
+    MCUs) takes by default is counted under the host route, and the images
+    equal the default decode's and are within 1 of the reference's host
+    route."""
+    jpgs = [oracle.jpeg_encode(make_photo(96, 144, seed=s), 85, "420",
+                               restart_interval=restart)
+            for s in range(BUCKET)]
+    before = dict(jb.ROUTES)
+    default = port.Decoder(device="cpu").decode(jpgs)
+    assert jb.ROUTES[route] - before[route] == BUCKET
+    before = dict(jb.ROUTES)
+    out = port.Decoder(
+        device="cpu",
+        options="cuda_jpeg_hybrid_decoder:device_entropy=false").decode(jpgs)
+    took = {k: jb.ROUTES[k] - before[k] for k in before}
+    assert took == {"idx": 0, "dri": 0, "host": BUCKET, "reissued": 0}
+    monkeypatch.setenv("TIC_NO_DEVICE_ENTROPY", "1")
+    want = ref.Decoder().decode(jpgs)
+    for a, b, c in zip(out, default, want):
+        assert torch.equal(a.array, b.array)
+        assert _diff(a, c) <= 1
+
+
+@pytest.mark.parametrize("args, error", [
+    ({"max_mb": "64"}, TypeError), ({"max_mb": -1}, ValueError),
+    ({"per_key_cap": 1.5}, TypeError), ({"per_key_cap": -2}, ValueError),
+    ({"alloc": 3}, TypeError)])
+def test_configure_host_pool_checks_its_arguments(args, error):
+    with pytest.raises(error, match="configure_host_pool"):
+        port.configure_host_pool(**args)
+
+
+def test_configure_host_pool_and_its_options_change_nothing(bucket):
+    """The port has no host pool: configure_host_pool takes the reference's
+    arguments and does nothing, and the JPEG plugin takes the reference's
+    pool options and ignores them."""
+    default = port.Decoder(device="cpu").decode(bucket)
+
+    def alloc(shape, dtype):
+        return np.empty(shape, dtype)
+
+    assert port.configure_host_pool(max_mb=128, per_key_cap=3,
+                                    alloc=alloc) is None
+    assert port.configure_host_pool() is None
+    out = port.Decoder(device="cpu", options=(
+        "cuda_jpeg_hybrid_decoder:host_pool_mb=64 "
+        "cuda_jpeg_hybrid_decoder:host_pool_per_key_cap=2")).decode(bucket)
+    for a, b in zip(out, default):
+        assert torch.equal(a.array, b.array)
+
+
 def test_gpu_backend_kind_filters_host_rungs():
     data = oracle.png_encode(make_photo(20, 24, seed=1))
     gpu_only = [port.Backend(port.BackendKind.HYBRID_CPU_GPU)]

@@ -452,7 +452,7 @@ def test_write_and_read_back(tmp_path):
 
 def test_package_exports_follow_the_reference():
     missing = [n for n in ref.__all__ if not hasattr(port, n)]
-    assert missing == ["configure_host_pool"]  # no host pool in the port
+    assert missing == []
     assert port.global_registry() is port.port_registry()
 
 

@@ -16,7 +16,7 @@ FILES = sorted(
     os.path.relpath(p, ROOT) for p in
     glob.glob(os.path.join(ROOT, "nvimagecodec_tpu_torch", "**", "*.py"),
               recursive=True)
-) + ["chip_smoke.py", "tools/profile_torch_decode.py",
+) + ["chip_smoke.py", "bench_torch.py", "tools/profile_torch_decode.py",
      "tools/profile_torch_encode.py", "tools/bench_idct.py",
      "tools/bench_fdct.py",
      "tools/bench_entropy.py", "tools/fp32_peak.py",
