@@ -1,0 +1,13 @@
+"""jpeg.h2d_bytes_per_image: counter imgcodec.jpeg.h2d_bytes (words, side
+data, tables, or host-route coefficients copied to the card) over the
+images pulled in the traced window; source: the program's counter."""
+UNIT = "B/image"
+SOURCE = "program_counter"
+COUNTER = "imgcodec.jpeg.h2d_bytes"
+
+
+def read(run):
+    n = sum(len(idx) for _t, idx in run.pulled)
+    if COUNTER not in run.counters or not n:
+        return None
+    return run.counters[COUNTER] / n
