@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from ...core.interfaces import DecodeParams, DecodeResult
-from ...core.trace import span
+from ...core.trace import bind, charge, span
 from ...core.types import ColorSpec, ProcessingStatus
 from ...ops.entropy_kernels import decode_segments_into, huffman_tables
 from ...parallel.mesh import shard_bounds
@@ -149,9 +149,12 @@ def on_device(device: torch.device):
 
 def _pixel_stage(frame, coefs, zigzag, fancy, to_rgb, to_u8, bitexact):
     with span("imgcodec.jpeg.pixel_stage"):
-        planes = idct_planes(frame, coefs, zigzag=zigzag, bitexact=bitexact)
-        img = assemble_image_i32(frame, planes, fancy)
-        return finish_image(frame, img, to_rgb, to_u8)
+        with span("imgcodec.jpeg.idct"):
+            planes = idct_planes(frame, coefs, zigzag=zigzag,
+                                 bitexact=bitexact)
+        with span("imgcodec.jpeg.upsample_color"):
+            img = assemble_image_i32(frame, planes, fancy)
+            return finish_image(frame, img, to_rgb, to_u8)
 
 
 def scan_indexed(good, frames, raws, R, nsegs):
@@ -326,23 +329,25 @@ def _host_route(idxs, frames, raws, results, fancy, to_rgb, to_u8, bitexact,
     frame0 = frames[idxs[0]]
     _, _, dims = frame0.mcu_geometry()
     b = len(idxs)
-    bufs = [stage((b, bh, bw, 64), torch.int16, device)
-            for (bw, bh) in dims]
-    views = [s.numpy() for s in bufs]
+    with span("imgcodec.jpeg.staging"):
+        bufs = [stage((b, bh, bw, 64), torch.int16, device)
+                for (bw, bh) in dims]
+        views = [s.numpy() for s in bufs]
 
     def fill(j):
         """Decode sample j into its slot; the error text if it is corrupt."""
         i = idxs[j]
-        try:
-            decode_coefficients_into(frames[i], raws[i],
-                                     [v[j] for v in views])
-        except ValueError as e:
-            return str(e)
-        return None
+        with charge("imgcodec.jpeg.host_entropy"):
+            try:
+                decode_coefficients_into(frames[i], raws[i],
+                                         [v[j] for v in views])
+            except ValueError as e:
+                return str(e)
+            return None
 
     with span("imgcodec.jpeg.host_entropy"):
         if pool is not None and b > 1:
-            errors = list(pool.map(fill, range(b)))
+            errors = list(pool.map(bind(fill), range(b)))
         else:
             errors = [fill(j) for j in range(b)]
     failed = {j for j, e in enumerate(errors) if e is not None}
@@ -376,18 +381,20 @@ def decode_batch_cuda(data_batch, params: DecodeParams, device="cuda",
 
     def parse_range(lo, hi):
         out = []
-        for i in range(lo, hi):
-            try:
-                raw = bytes(data_batch[i])
-                out.append((i, raw, parse_jpeg_structure(raw), None))
-            except Exception as e:  # any malformed stream fails alone
-                out.append((i, None, None, str(e)))
+        with charge("imgcodec.jpeg.parse"):
+            for i in range(lo, hi):
+                try:
+                    raw = bytes(data_batch[i])
+                    out.append((i, raw, parse_jpeg_structure(raw), None))
+                except Exception as e:  # any malformed stream fails alone
+                    out.append((i, None, None, str(e)))
         return out
 
     with span("imgcodec.jpeg.parse"):
         if pool is not None and n >= 32:
             chunk = max(16, -(-n // nthreads))
-            futs = [pool.submit(parse_range, lo, min(n, lo + chunk))
+            task = bind(parse_range)
+            futs = [pool.submit(task, lo, min(n, lo + chunk))
                     for lo in range(0, n, chunk)]
             parsed = [t for f in futs for t in f.result()]
         else:

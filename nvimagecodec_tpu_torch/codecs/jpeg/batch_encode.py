@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ...core.interfaces import EncodeParams, EncodeResult, JpegEncodeParams
-from ...core.trace import add_count, span
+from ...core.trace import add_count, bind, charge, span
 from ...core.types import ProcessingStatus
 from ...parallel.mesh import shard_bounds
 from .batch import _shared_pool, on_device
@@ -232,9 +232,10 @@ def _stack_bucket(images, shape, dt: str, device, pool) -> torch.Tensor:
         stage_np = stage.numpy().view(dt)
 
         def gather(j):
-            stage_np[j] = host_array(rest[j]).reshape(shape)
+            with charge("imgcodec.jpeg.encode_stack"):
+                stage_np[j] = host_array(rest[j]).reshape(shape)
 
-        list(pool.map(gather, range(len(rest))))
+        list(pool.map(bind(gather), range(len(rest))))
         parts.append(stage.to(device, non_blocking=True))
     x = parts[0] if len(parts) == 1 else torch.cat(parts)
     return x.view(torch.uint16) if dt == "uint16" else x
@@ -330,25 +331,32 @@ def encode_batch_cuda(image_batch, params: Optional[EncodeParams] = None,
                               key=lambda i: not _lives_on(image_batch[i],
                                                           dev))
                 with on_device(dev):
-                    x = _stack_bucket([image_batch[i] for i in idxs], shape,
-                                      dt, dev, pool)
-                    coefs = [c.to(torch.int16)
-                             for c in encode_pixels(x, frame, dev)]
-                    fetches.append((idxs, _start_fetch(coefs, dev)))
-            for idxs, (hosts, event) in fetches:
-                if event is not None:
-                    event.synchronize()
-                coefs_host = [h.numpy() for h in hosts]
-                samples.extend((i, coefs_host, j) for j, i in enumerate(idxs))
+                    with span("imgcodec.jpeg.encode_stack"):
+                        x = _stack_bucket([image_batch[i] for i in idxs],
+                                          shape, dt, dev, pool)
+                    with span("imgcodec.jpeg.encode_pixels"):
+                        coefs = [c.to(torch.int16)
+                                 for c in encode_pixels(x, frame, dev)]
+                        fetches.append((idxs, _start_fetch(coefs, dev)))
+            with span("imgcodec.jpeg.encode_d2h_wait"):
+                for idxs, (hosts, event) in fetches:
+                    if event is not None:
+                        event.synchronize()
+                    coefs_host = [h.numpy() for h in hosts]
+                    samples.extend((i, coefs_host, j)
+                                   for j, i in enumerate(idxs))
 
         with span("imgcodec.jpeg.encode_host_entropy"):
             tail = None if jp.optimized_huffman else _standard_tail(frame)
 
             def one(coefs_host, j):
-                return _finish_one(frame, [c[j] for c in coefs_host], jp,
-                                   tail)
+                with charge("imgcodec.jpeg.encode_host_entropy"):
+                    return _finish_one(frame, [c[j] for c in coefs_host], jp,
+                                       tail)
 
-            done = _results([pool.submit(one, c, j) for _i, c, j in samples])
+            task = bind(one)
+            done = _results([pool.submit(task, c, j)
+                             for _i, c, j in samples])
         for (i, _c, _j), r in zip(samples, done):
             results[i] = r
         _count("device", sum(bool(r.status & ProcessingStatus.SUCCESS)

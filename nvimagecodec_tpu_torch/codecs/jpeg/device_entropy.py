@@ -195,10 +195,12 @@ def stage(shape, dtype, device) -> torch.Tensor:
 def upload(bufs: List[torch.Tensor], device) -> List[torch.Tensor]:
     """Host staging → device tensors: asynchronous copies on the current
     stream. On the CPU the buffers are the device tensors."""
-    if device.type != "cuda":
-        return bufs
-    trace.add_count("imgcodec.jpeg.h2d_bytes", sum(b.nbytes for b in bufs))
-    return [b.to(device, non_blocking=True) for b in bufs]
+    with span("imgcodec.jpeg.upload"):
+        if device.type != "cuda":
+            return bufs
+        trace.add_count("imgcodec.jpeg.h2d_bytes",
+                        sum(b.nbytes for b in bufs))
+        return [b.to(device, non_blocking=True) for b in bufs]
 
 
 def words_estimate(scan_bytes: int, nsegs: int) -> int:

@@ -41,7 +41,7 @@ from .logger import (
     get_logger,
 )
 from .thread_pool import PriorityThreadPool
-from .trace import span
+from .trace import bind, span
 from .promise import ProcessingResultsFuture, ProcessingResultsPromise
 from .registry import CodecRegistry, global_registry
 from .types import Backend, BackendKind, ChromaSubsampling, ProcessingStatus
@@ -148,6 +148,7 @@ class GenericBatchProcessor:
         """Submit honoring priority when the pool supports it; user executors
         only need plain submit() (reference: user_executor.h has no priority
         in its vtable either — schedule() takes task only)."""
+        fn = bind(fn)  # the batch's spans keep their ids on the pool
         if self._pool_is_priority:
             return self._pool.submit(fn, *args, priority=priority)
         return self._pool.submit(fn, *args)

@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from ..core.trace import span
 from .convert import widen_uint16
 
 
@@ -152,13 +153,14 @@ def resize_lanczos(img, out_h: int, out_w: int):
 
 def resize(img, out_h: int, out_w: int, interp: str = "bilinear"):
     """Dispatch by interpolation name: bilinear | bicubic | lanczos."""
-    if interp == "bilinear":
-        return resize_bilinear(img, out_h, out_w)
-    if interp == "bicubic":
-        return resize_bicubic(img, out_h, out_w)
-    if interp == "lanczos":
-        return resize_lanczos(img, out_h, out_w)
-    raise ValueError(f"unknown interpolation {interp!r}")
+    with span("imgcodec.resize"):
+        if interp == "bilinear":
+            return resize_bilinear(img, out_h, out_w)
+        if interp == "bicubic":
+            return resize_bicubic(img, out_h, out_w)
+        if interp == "lanczos":
+            return resize_lanczos(img, out_h, out_w)
+        raise ValueError(f"unknown interpolation {interp!r}")
 
 
 def _moved(fn, img: torch.Tensor) -> torch.Tensor:

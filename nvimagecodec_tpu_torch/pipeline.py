@@ -63,24 +63,25 @@ def decode_batches(
     params = params or DecodeParams()
 
     def _one(batch):
-        outs = dec.decode(list(batch), params)
-        if drop_failed:
-            outs = [o for o in outs if o is not None]
-        devices = {dec.device}
-        devices.update(o.array.device for o in outs if o is not None)
-        if mesh is not None and outs and None not in outs and len(
-                {tuple(o.shape) for o in outs}) == 1:
-            outs = _shard_stack([o.array for o in outs], mesh)
-            devices.update(t.device for t in outs)
-        # each stream is in order: its event completes after the batch's
-        # work on that device
-        events = []
-        for d in devices:
-            if d.type == "cuda":
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(d))
-                events.append(event)
-        return outs, events
+        with span("imgcodec.pipeline.batch"):
+            outs = dec.decode(list(batch), params)
+            if drop_failed:
+                outs = [o for o in outs if o is not None]
+            devices = {dec.device}
+            devices.update(o.array.device for o in outs if o is not None)
+            if mesh is not None and outs and None not in outs and len(
+                    {tuple(o.shape) for o in outs}) == 1:
+                outs = _shard_stack([o.array for o in outs], mesh)
+                devices.update(t.device for t in outs)
+            # each stream is in order: its event completes after the batch's
+            # work on that device
+            events = []
+            for d in devices:
+                if d.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(d))
+                    events.append(event)
+            return outs, events
 
     def _force(done):
         outs, events = done
