@@ -1,7 +1,8 @@
 """Batched JPEG decode on a CUDA device.
 
 The port of nvimagecodec_tpu/codecs/jpeg/batch.py (`decode_batch_tpu`,
-:394-628 and :746-1072). Samples are parsed on a thread pool and bucketed by
+:394-628 and :746-1072). Samples are parsed in one native marker walk
+(`headers.parse_jpeg_batch`, on the calling thread) and bucketed by
 geometry (dimensions, sampling factors, quant tables). Each bucket then takes
 one of three routes, all ending in the same pixel stage (K1, upsample,
 colour), and comes out as one [B, H, W(, C)] tensor whose rows are the
@@ -67,7 +68,7 @@ from .device_entropy import (
     upload,
     uploaded_tables,
 )
-from .headers import parse_jpeg_structure
+from .headers import parse_jpeg_batch, parse_jpeg_structure
 from .native import decode_coefficients_into
 from .pixel import assemble_image_i32, finish_image, geometry_key, idct_planes
 
@@ -379,34 +380,16 @@ def decode_batch_cuda(data_batch, params: DecodeParams, device="cuda",
     nthreads = min(32, os.cpu_count() or 2)
     pool = _shared_pool("entropy", nthreads) if n > 1 else None
 
-    def parse_range(lo, hi):
-        out = []
-        with charge("imgcodec.jpeg.parse"):
-            for i in range(lo, hi):
-                try:
-                    raw = bytes(data_batch[i])
-                    out.append((i, raw, parse_jpeg_structure(raw), None))
-                except Exception as e:  # any malformed stream fails alone
-                    out.append((i, None, None, str(e)))
-        return out
-
     with span("imgcodec.jpeg.parse"):
-        if pool is not None and n >= 32:
-            chunk = max(16, -(-n // nthreads))
-            task = bind(parse_range)
-            futs = [pool.submit(task, lo, min(n, lo + chunk))
-                    for lo in range(0, n, chunk)]
-            parsed = [t for f in futs for t in f.result()]
-        else:
-            parsed = parse_range(0, n)
+        parsed = parse_jpeg_batch(data_batch)
     frames, raws = {}, {}
     groups: Dict[tuple, list] = {}
-    for i, raw, frame, err in parsed:
-        if err is not None:
+    for i, (frame, err) in enumerate(parsed):
+        if err is not None:  # a malformed stream fails alone
             results[i] = DecodeResult(_FAIL_CORRUPT, error=err)
             continue
         frames[i] = frame
-        raws[i] = raw
+        raws[i] = bytes(data_batch[i])
         groups.setdefault(geometry_key(frame), []).append(i)
 
     cs = params.color_spec

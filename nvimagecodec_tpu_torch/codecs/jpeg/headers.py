@@ -3,15 +3,22 @@
 Counterpart of the header walks inside the reference's nvjpeg-based decoders
 (the parser in src/parsers/jpeg.cpp only sniffs ImageInfo; the codec itself
 needs DQT/DHT/SOF/SOS/DRI — nvjpeg does this internally, we do it here).
+
+The marker walk is native (native/jpeg_headers.cpp, `tic_jpeg_parse_batch`):
+one call a batch, which finds every segment and every scan's end without the
+interpreter lock and writes a record a stream. The frames are built here
+from the records, reading only the bytes of the table segments.
 """
 from __future__ import annotations
 
-import struct
+import ctypes
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ...core.trace import add_count
+from ...native import lib as native_lib
 from .tables import ZIGZAG
 
 # marker bytes
@@ -132,127 +139,186 @@ class JpegFrame:
         return (w + 7) // 8, (h + 7) // 8
 
 
-def parse_jpeg_structure(data: bytes) -> JpegFrame:
-    """Walk all markers, collecting tables and scan spans."""
-    n = len(data)
-    if n < 4 or data[0] != 0xFF or data[1] != SOI:
-        raise ValueError("not a JPEG")
-    pos = 2
-    frame: Optional[JpegFrame] = None
+# the native walk's record items (native/jpeg_headers.cpp)
+_SOF, _DQT, _DHT, _DRI, _ADOBE, _SOS = 1, 2, 3, 4, 5, 6
+_CAPACITY = -2
+# words a stream's record gets at first; a longer one is walked again
+_RECORD_WORDS = 256
+_ERRORS = {
+    1: "not a JPEG",
+    2: "SOS before SOF",
+    3: "JPEG: no frame header",
+    4: "JPEG: SOF segment shorter than its components",
+    5: "JPEG: DQT table runs past its segment",
+    6: "JPEG: DRI segment shorter than 2 bytes",
+    7: "JPEG: SOS segment shorter than its fields",
+    8: "JPEG: SOS names a component the frame lacks",
+}
+
+# parsed table segments by their bytes, DQT and DHT apart: a batch's
+# streams mostly share them. A lookup and a store are single dictionary
+# operations; threads that race at worst parse a segment twice.
+_QUANT_CACHE: Dict[bytes, list] = {}
+_HUFF_CACHE: Dict[bytes, list] = {}
+_CACHE_MAX = 1024
+
+
+def _quant_tables(seg: bytes) -> List[Tuple[int, np.ndarray]]:
+    """[(tq, natural-order int32 table)] of a DQT segment whose tables the
+    walk found whole. Shared: the caller copies."""
+    out = _QUANT_CACHE.get(seg)
+    if out is None:
+        out = []
+        p = 0
+        while p < len(seg):
+            pq, tq = seg[p] >> 4, seg[p] & 0xF
+            p += 1
+            if pq:
+                vals = np.frombuffer(seg, ">u2", 64, p).astype(np.int32)
+                p += 128
+            else:
+                vals = np.frombuffer(seg, np.uint8, 64, p).astype(np.int32)
+                p += 64
+            nat = np.zeros(64, np.int32)
+            nat[ZIGZAG] = vals  # stored zigzag → natural order
+            out.append((tq, nat))
+        _remember(_QUANT_CACHE, seg, out)
+    return out
+
+
+def _huff_tables(seg: bytes) -> List[Tuple[int, int, List[int], List[int]]]:
+    """[(tc, th, bits, values)] of a DHT segment; a table cut off by the
+    segment's end keeps what it has. Shared: the caller copies."""
+    out = _HUFF_CACHE.get(seg)
+    if out is None:
+        out = []
+        p = 0
+        while p < len(seg):
+            bits = list(seg[p + 1:p + 17])
+            nv = sum(bits)
+            out.append((seg[p] >> 4, seg[p] & 0xF, bits,
+                        list(seg[p + 17:p + 17 + nv])))
+            p += 17 + nv
+        _remember(_HUFF_CACHE, seg, out)
+    return out
+
+
+def _remember(cache: dict, seg: bytes, tables: list) -> None:
+    if len(cache) >= _CACHE_MAX:
+        cache.clear()
+    cache[seg] = tables
+
+
+def _frame(data: bytes, r: List[int]) -> JpegFrame:
+    """The frame of one stream from its record `r`, items in stream order:
+    a table or DRI item changes the state that later scans snapshot, and
+    an SOF item starts the frame afresh."""
+    frame = None
     quant: Dict[int, np.ndarray] = {}
     dc_huff: Dict[int, HuffTable] = {}
     ac_huff: Dict[int, HuffTable] = {}
     restart_interval = 0
     adobe_transform = None
-
-    while pos + 2 <= n:
-        if data[pos] != 0xFF:
-            pos += 1
-            continue
-        marker = data[pos + 1]
-        if marker == 0xFF:
-            pos += 1
-            continue
-        if marker == SOI or (0xD0 <= marker <= 0xD7):
-            pos += 2
-            continue
-        if marker == EOI:
-            break
-        if pos + 4 > n:
-            break
-        (seglen,) = struct.unpack_from(">H", data, pos + 2)
-        seg_start = pos + 4
-        seg = data[seg_start : pos + 2 + seglen]
-
-        if marker in SOF_SET:
-            precision, h, w, ncomp = struct.unpack_from(">BHHB", seg, 0)
-            comps = []
-            for c in range(ncomp):
-                cid = seg[6 + 3 * c]
-                hv = seg[7 + 3 * c]
-                tq = seg[8 + 3 * c]
-                comps.append(Component(cid, hv >> 4, hv & 0xF, tq))
-            frame = JpegFrame(marker, precision, h, w, comps)
-        elif marker == DQT:
-            p = 0
-            while p < len(seg):
-                pq_tq = seg[p]
-                pq, tq = pq_tq >> 4, pq_tq & 0xF
-                p += 1
-                if pq:
-                    vals = np.frombuffer(seg, ">u2", 64, p).astype(np.int32)
-                    p += 128
-                else:
-                    vals = np.frombuffer(seg, np.uint8, 64, p).astype(np.int32)
-                    p += 64
-                nat = np.zeros(64, np.int32)
-                nat[ZIGZAG] = vals  # stored zigzag → natural order
-                quant[tq] = nat
-        elif marker == DHT:
-            p = 0
-            while p < len(seg):
-                tc_th = seg[p]
-                tc, th = tc_th >> 4, tc_th & 0xF
-                bits = list(seg[p + 1 : p + 17])
-                nv = sum(bits)
-                values = list(seg[p + 17 : p + 17 + nv])
-                tbl = HuffTable(bits, values)
-                if tc == 0:
-                    dc_huff[th] = tbl
-                else:
-                    ac_huff[th] = tbl
-                p += 17 + nv
-        elif marker == DRI:
-            (restart_interval,) = struct.unpack_from(">H", seg, 0)
-        elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
-            adobe_transform = seg[11]
-        elif marker == SOS:
-            if frame is None:
-                raise ValueError("SOS before SOF")
-            ns = seg[0]
-            comp_indices = []
-            dc_tables, ac_tables = [], []
-            for j in range(ns):
-                cs = seg[1 + 2 * j]
-                td_ta = seg[2 + 2 * j]
-                idx = next(
-                    i for i, c in enumerate(frame.components) if c.comp_id == cs
-                )
-                comp_indices.append(idx)
-                dc_tables.append(td_ta >> 4)
-                ac_tables.append(td_ta & 0xF)
-            ss = seg[1 + 2 * ns]
-            se = seg[2 + 2 * ns]
-            ahal = seg[3 + 2 * ns]
-            data_start = pos + 2 + seglen
-            # entropy data runs to the next non-RST marker. One vectorized
-            # pass: all 0xFF positions and their successors at once, not a
-            # find per 0xFF in a Python loop
-            arr = np.frombuffer(data, np.uint8)
-            seg_ff = np.flatnonzero(arr[data_start : n - 1] == 0xFF)
-            if seg_ff.size:
-                nxt = arr[data_start + seg_ff + 1]
-                real = seg_ff[(nxt != 0x00) & (nxt != 0xFF)
-                              & ((nxt < 0xD0) | (nxt > 0xD7))]
-                data_end = data_start + int(real[0]) if real.size else n
-            else:
-                data_end = n
-            frame.scans.append(
-                ScanInfo(
-                    comp_indices, ss, se, ahal >> 4, ahal & 0xF,
-                    data_start, data_end, dc_tables, ac_tables,
-                    dict(dc_huff), dict(ac_huff), restart_interval,
-                )
-            )
-            pos = data_end
-            continue
-        pos += 2 + seglen
-
-    if frame is None:
-        raise ValueError("JPEG: no frame header")
+    k, end = 0, len(r)
+    while k < end:
+        kind = r[k]
+        if kind == _SOS:
+            ns = r[k + 1]
+            t = k + 2 + 3 * ns
+            ss, se, ah, al, data_start, data_end = r[t:t + 6]
+            frame.scans.append(ScanInfo(
+                r[k + 2:t:3], ss, se, ah, al, data_start, data_end,
+                r[k + 3:t:3], r[k + 4:t:3], dict(dc_huff), dict(ac_huff),
+                restart_interval))
+            k = t + 6
+        elif kind == _DHT:
+            for tc, th, bits, values in _huff_tables(data[r[k + 1]:r[k + 2]]):
+                (ac_huff if tc else dc_huff)[th] = HuffTable(list(bits),
+                                                             list(values))
+            k += 3
+        elif kind == _DQT:
+            for tq, nat in _quant_tables(data[r[k + 1]:r[k + 2]]):
+                quant[tq] = nat.copy()
+            k += 3
+        elif kind == _SOF:
+            marker, precision, h, w, nc = r[k + 1:k + 6]
+            k += 6
+            frame = JpegFrame(marker, precision, h, w,
+                              [Component(*r[j:j + 4])
+                               for j in range(k, k + 4 * nc, 4)])
+            k += 4 * nc
+        elif kind == _DRI:
+            restart_interval = r[k + 1]
+            k += 2
+        else:  # _ADOBE
+            adobe_transform = r[k + 1]
+            k += 2
     frame.quant = quant
     frame.dc_huff = dc_huff
     frame.ac_huff = ac_huff
     frame.restart_interval = restart_interval
     frame.adobe_transform = adobe_transform
+    return frame
+
+
+def _walk(datas: List[bytes], words: int):
+    """One native call over `datas`, `words` record words a stream:
+    (records [n, words], status [n], used [n]), int64 views of one buffer
+    (one address for ctypes to take: each costs microseconds)."""
+    n = len(datas)
+    buf = np.empty(n * (words + 4) + 1, np.int64)
+    k = n * words
+    buf[k:k + n + 1] = np.arange(0, (n + 1) * words, words)
+    buf[k + n + 1:k + 2 * n + 1] = [len(d) for d in datas]
+    at = buf.ctypes.data
+    native_lib().tic_jpeg_parse_batch(
+        n, (ctypes.c_char_p * n)(*datas), at + 8 * (k + n + 1), at,
+        at + 8 * k, at + 8 * (k + 2 * n + 1), at + 8 * (k + 3 * n + 1))
+    return (buf[:k].reshape(n, words), buf[k + 2 * n + 1:k + 3 * n + 1],
+            buf[k + 3 * n + 1:])
+
+
+def parse_jpeg_batch(datas: Sequence) -> List[Tuple[Optional[JpegFrame],
+                                                    Optional[str]]]:
+    """Walk the markers of every stream of `datas` (bytes-like) in one
+    native call, which holds no interpreter lock, and build each frame.
+    Returns one (frame, None) or (None, error text) a stream: a malformed
+    stream fails alone."""
+    out: List[Tuple[Optional[JpegFrame], Optional[str]]] = [None] * len(datas)
+    raws, where = [], []
+    for i, d in enumerate(datas):
+        try:
+            raws.append(d if type(d) is bytes else bytes(d))
+            where.append(i)
+        except Exception as e:  # not bytes-like
+            out[i] = (None, str(e))
+    n = len(raws)
+    if n:
+        rec, status, used = _walk(raws, _RECORD_WORDS)
+        add_count("imgcodec.jpeg.parse_native_streams", n)
+        rows = {}
+        long = np.flatnonzero(status == _CAPACITY)
+        if long.size:  # walked again, each with the words it needs
+            rec2, status[long], _ = _walk([raws[j] for j in long],
+                                          int(used[long].max()))
+            rows = dict(zip(long.tolist(), rec2))
+        status, used = status.tolist(), used.tolist()
+        for j, i in enumerate(where):
+            if status[j]:
+                out[i] = (None, _ERRORS[status[j]])
+                continue
+            row = rows[j] if j in rows else rec[j]
+            try:
+                out[i] = (_frame(raws[j], row[:used[j]].tolist()), None)
+            except Exception as e:  # whatever the walk let through fails alone
+                out[i] = (None, str(e))
+    return out
+
+
+def parse_jpeg_structure(data: bytes) -> JpegFrame:
+    """Walk all markers, collecting tables and scan spans: the batch of
+    one (`parse_jpeg_batch`). Raises ValueError for a malformed stream."""
+    frame, err = parse_jpeg_batch([data])[0]
+    if err is not None:
+        raise ValueError(err)
     return frame

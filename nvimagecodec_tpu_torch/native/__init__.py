@@ -1,9 +1,9 @@
 """Native (C++) host components, built on demand with the system compiler.
 
 The port's own copy of nvimagecodec_tpu/native: the host stages where Python
-costs real time (JPEG entropy decode and encode, index scan, restart split,
-arithmetic and lossless JPEG, PNG defilter, TIFF LZW/fax, WebP VP8, JPEG2000
-Tier-1/Tier-2). At first
+costs real time (JPEG marker walk, entropy decode and encode, index scan,
+restart split, arithmetic and lossless JPEG, PNG defilter, TIFF LZW/fax,
+WebP VP8, JPEG2000 Tier-1/Tier-2). At first
 use `c++` compiles the `*.cpp` beside this file into
 `nvimagecodec_tpu_torch/build/libtic_host.so`; the library is rebuilt when a
 source is newer than it. The build writes a temporary file and renames it
@@ -202,6 +202,12 @@ def _declare(L: ctypes.CDLL) -> None:
         ctypes.c_int32, c_i32p, c_i32p, c_i32p, c_i32p,
     ]
     L.tic_jpeg_lossless_decode.restype = ctypes.c_int
+    # the int64 arrays as addresses (c_void_p): one numpy buffer holds all
+    L.tic_jpeg_parse_batch.argtypes = [
+        ctypes.c_int32, ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    L.tic_jpeg_parse_batch.restype = ctypes.c_int
     _declare_j2k(L)
 
 
