@@ -11,6 +11,7 @@ the host. The encoder is host code.
 from __future__ import annotations
 
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
@@ -25,6 +26,7 @@ from ...core.interfaces import (
     Jpeg2kEncodeParams,
 )
 from ...core.options import get_bool, get_int
+from ...core.trace import bind
 from ...core.types import BackendKind, Priority, ProcessingStatus
 from ...ops.color import rgb_to_ycbcr_i32, ycbcr_to_rgb_i32
 from ...ops.convert import widen_uint16
@@ -152,15 +154,14 @@ class Jpeg2kHybridCudaDecoder(DecoderPlugin):
             return _finish(img, jp2_colorspace(raw) == 18,
                            not params.allow_any_depth)
 
-        # samples fan over an outer pool: each sample's T1 already fans over
-        # code-blocks, so all cores stay busy across sample boundaries
+        # samples fan over the outer pool: each sample's T1 already fans
+        # over code-blocks, so all cores stay busy across sample boundaries;
+        # a sample's spans are children of the caller's (bind)
         jobs = list(zip(data_batch, info_batch))
         if len(jobs) > 1:
-            with ThreadPoolExecutor(
-                max_workers=min(len(jobs), os.cpu_count() or 2)
-            ) as pool:
-                futs = [pool.submit(one, d, i) for d, i in jobs]
-                outcomes = [_outcome(f.result) for f in futs]
+            task = bind(one)
+            futs = [_sample_pool().submit(task, d, i) for d, i in jobs]
+            outcomes = [_outcome(f.result) for f in futs]
         else:
             outcomes = [_outcome(one, d, i) for d, i in jobs]
         # every worker has ended: now a device failure may be raised
@@ -168,6 +169,23 @@ class Jpeg2kHybridCudaDecoder(DecoderPlugin):
             if isinstance(o, J2kDeviceStageError):
                 raise o
         return outcomes
+
+
+_SAMPLE_POOL = [None]
+_SAMPLE_POOL_LOCK = threading.Lock()
+
+
+def _sample_pool() -> ThreadPoolExecutor:
+    """The samples' pool: a thread a core, one for the process. Batches in
+    flight at once (decode_batches' depth) share it, so they decode as many
+    samples at once as there are cores, not that many each, and no batch
+    starts threads of its own."""
+    with _SAMPLE_POOL_LOCK:
+        if _SAMPLE_POOL[0] is None:
+            _SAMPLE_POOL[0] = ThreadPoolExecutor(
+                max_workers=os.cpu_count() or 2,
+                thread_name_prefix="j2k-sample")
+        return _SAMPLE_POOL[0]
 
 
 def _outcome(fn, *args):

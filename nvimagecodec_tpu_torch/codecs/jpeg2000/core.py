@@ -14,6 +14,7 @@ All part-1 code-block styles are handled natively (see native/j2k_t1.cpp).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import os
@@ -25,7 +26,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ...core.trace import add_count, span
+from ...core.trace import add_count, charge_ns, span
 from ...ops import dwt as dwt_ops
 from ...parallel.tiles import idwt_tiles_sharded
 from .codestream import (
@@ -691,6 +692,12 @@ class J2kDeviceStageError(RuntimeError):
 # (PERF.md section 6, the J2K crossover)
 DEVICE_STAGE_MIN_PIXELS = 512 * 512
 
+# one device stage launches at a time: threads that launch into a CUDA
+# context at once spin in its driver (on an H100 with 8 host cores, 16
+# threads took ~100 ms of CPU a stage, and one at a time ~4 ms), and a
+# decoder with batches in flight runs a stage on every sample thread
+_LAUNCH_LOCK = threading.Lock()
+
 # streams per pixel stage: "device" one tile, "device_tiles" a uniform tile
 # grid, "host" the native / host synthesis
 ROUTES = {"device": 0, "device_tiles": 0, "host": 0}
@@ -870,27 +877,30 @@ def _run_device_stage(job: _DeviceJob, mesh=None) -> torch.Tensor:
     rows = sp and grid is None and cp.levels > 0 and origin == (0, 0)
     tiles = sp and grid is not None and (grid[0] * grid[1]) % sp == 0
     try:
-        # with a mesh, each device copies its share of the host buffer
-        if not (rows or tiles):
-            LL, bands = stage.upload(device)
-        with span("imgcodec.jpeg2k.device_stage"):
-            if rows:
-                img = _rows_sharded_samples(job, mesh)
-            else:
-                px = (_tiles_sharded_pixels(job, mesh) if tiles else
-                      device_pixels(LL, bands, tile_shape, cp.reversible,
-                                    cp.mct and C == 3, depth, origin))
-                if grid is None:
-                    img = _to_samples(px.permute(1, 2, 0), depth)
+        # one launcher at a time on a CUDA device (_LAUNCH_LOCK)
+        with (_LAUNCH_LOCK if device.type == "cuda"
+              else contextlib.nullcontext()):
+            # with a mesh, each device copies its share of the host buffer
+            if not (rows or tiles):
+                LL, bands = stage.upload(device)
+            with span("imgcodec.jpeg2k.device_stage"):
+                if rows:
+                    img = _rows_sharded_samples(job, mesh)
                 else:
-                    if missing:
-                        px[list(missing)] = 0
-                    th, tw = tile_shape
-                    # [T, C, th, tw] → [ty, th, tx, tw, C] → [H, W, C]
-                    img = _to_samples(
-                        px.view(grid[0], grid[1], C, th, tw).permute(
-                            0, 3, 1, 4, 2), depth
-                    ).view(grid[0] * th, grid[1] * tw, C)
+                    px = (_tiles_sharded_pixels(job, mesh) if tiles else
+                          device_pixels(LL, bands, tile_shape, cp.reversible,
+                                        cp.mct and C == 3, depth, origin))
+                    if grid is None:
+                        img = _to_samples(px.permute(1, 2, 0), depth)
+                    else:
+                        if missing:
+                            px[list(missing)] = 0
+                        th, tw = tile_shape
+                        # [T, C, th, tw] → [ty, th, tx, tw, C] → [H, W, C]
+                        img = _to_samples(
+                            px.view(grid[0], grid[1], C, th, tw).permute(
+                                0, 3, 1, 4, 2), depth
+                        ).view(grid[0] * th, grid[1] * tw, C)
     except Exception as e:
         raise J2kDeviceStageError(
             f"J2K device pixel stage failed on {device}: "
@@ -985,6 +995,7 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
     (the image as numpy) or, where `device` is named and the stream allows
     it, the filled upload buffer as a _DeviceJob."""
     cs = unwrap_jp2(bytes(data))
+    add_count("imgcodec.jpeg2k.stream_bytes", len(cs))
     siz, cp, pos = parse_main_header(cs, 0)
     if len(set(siz.depth)) > 1 or len(set(siz.signed)) > 1:
         raise ValueError("J2K: mixed component depth/signedness not supported")
@@ -1116,39 +1127,28 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
                                             tcr[c][2], tcr[c][3],
                                             ccs[c].levels)
                        for c in range(C)}
-        pdec = PacketDecoder(siz, cp, resolutions)
-        if ppt is not None:
-            import ctypes as _ct
+        # Tier-2: packet headers, and each code-block's segments
+        with span("imgcodec.jpeg2k.t2"):
+            pdec = PacketDecoder(siz, cp, resolutions)
+            if ppt is not None:
+                import ctypes as _ct
 
-            br = HeaderBitReader(ppt, 0)   # packed packet headers
-            body_pos = _ct.c_int64(0)
-            for l, r, c, p in progression_iter(tcp, resolutions, C, tx0,
-                                               ty0, sub=sub):
-                if br.pos > len(ppt):
-                    raise ValueError("J2K: PPT headers exhausted")
-                pdec.read_packet(br, c, r, l, p, body=tdata,
-                                 body_pos=body_pos)
-        else:
-            br = HeaderBitReader(tdata, 0)
-            for l, r, c, p in progression_iter(tcp, resolutions, C, tx0,
-                                               ty0, sub=sub):
-                if br.pos > len(tdata):
-                    raise ValueError("J2K: tile data exhausted mid-packet")
-                pdec.read_packet(br, c, r, l, p)
+                br = HeaderBitReader(ppt, 0)   # packed packet headers
+                body_pos = _ct.c_int64(0)
+                for l, r, c, p in progression_iter(tcp, resolutions, C, tx0,
+                                                   ty0, sub=sub):
+                    if br.pos > len(ppt):
+                        raise ValueError("J2K: PPT headers exhausted")
+                    pdec.read_packet(br, c, r, l, p, body=tdata,
+                                     body_pos=body_pos)
+            else:
+                br = HeaderBitReader(tdata, 0)
+                for l, r, c, p in progression_iter(tcp, resolutions, C, tx0,
+                                                   ty0, sub=sub):
+                    if br.pos > len(tdata):
+                        raise ValueError("J2K: tile data exhausted mid-packet")
+                    pdec.read_packet(br, c, r, l, p)
 
-        # T1 decode all codeblocks in parallel, then dequant + IDWT
-        planes = []
-        batch = BlockBatch(base=tdata)
-        borders = [_band_order(ccs[c]) for c in range(C)]
-        kepts = [[(r, bi) for (r, bi) in borders[c]
-                  if r <= ccs[c].levels - discard_levels]
-                 for c in range(C)]
-        # all-reversible tiles decode DIRECTLY into the int32 band arrays
-        # (native strided writes, no per-block Python consume loop)
-        all_rev = all(ccs[c].reversible for c in range(C))
-        decoded: Dict[int, Dict[Tuple[int, int], np.ndarray]] = {
-            c: {} for c in range(C)
-        }
         if (single_tile or uniform_grid) and stage is None:
             band_dims = [None] * len(border)
             for (r, bi) in border:
@@ -1158,112 +1158,129 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
             stage = _SubbandStage(
                 (ntiles_total, C) if uniform_grid else (C,), band_dims,
                 stage_dtype, device)
-        for c in range(C):
-            for (r, bi) in kepts[c]:
-                band = resolutions[c][r].bands[bi]
-                if stage is not None and cp.reversible:
-                    # T1 decodes straight into the upload buffer
-                    leaf = stage.leaves[
-                        _SubbandStage.leaf_index(cp.levels, r, bi)]
-                    decoded[c][(r, bi)] = (leaf[tidx, c] if uniform_grid
-                                           else leaf[c])
-                    continue
-                fdtype = np.int32 if ccs[c].reversible else np.float64
-                decoded[c][(r, bi)] = np.zeros((band.h, band.w), fdtype)
-        dests = [] if all_rev else None
-        for c in range(C):
-            cc = ccs[c]
-            border_c = borders[c]
-            for (r, bi) in kepts[c]:
-                band = resolutions[c][r].bands[bi]
-                eps, mu = cc.band_q[border_c.index((r, bi))]
-                mb = (eps + cc.guard_bits - 1
-                      + (cp.rgn.get(c, 0) if cp.rgn else 0))
-                need = (
-                    _roi_needed_rect(r, cp.levels, *roi) if roi is not None
-                    else None
-                )
-                for cb in pdec.band_cblks(c, r, bi):
-                    if not cb.included or cb.num_passes == 0:
+        # Tier-1: every code-block of the tile in one native batch
+        with span("imgcodec.jpeg2k.t1"):
+            planes = []
+            batch = BlockBatch(base=tdata)
+            borders = [_band_order(ccs[c]) for c in range(C)]
+            kepts = [[(r, bi) for (r, bi) in borders[c]
+                      if r <= ccs[c].levels - discard_levels]
+                     for c in range(C)]
+            # all-reversible tiles decode DIRECTLY into the int32 band arrays
+            # (native strided writes, no per-block Python consume loop)
+            all_rev = all(ccs[c].reversible for c in range(C))
+            decoded: Dict[int, Dict[Tuple[int, int], np.ndarray]] = {
+                c: {} for c in range(C)
+            }
+            for c in range(C):
+                for (r, bi) in kepts[c]:
+                    band = resolutions[c][r].bands[bi]
+                    if stage is not None and cp.reversible:
+                        # T1 decodes straight into the upload buffer
+                        leaf = stage.leaves[
+                            _SubbandStage.leaf_index(cp.levels, r, bi)]
+                        decoded[c][(r, bi)] = (leaf[tidx, c] if uniform_grid
+                                               else leaf[c])
                         continue
-                    if need is not None and (
-                        cb.y1 <= need[0] or cb.x1 <= need[1]
-                        or cb.y0 >= need[2] or cb.x0 >= need[3]
-                    ):
-                        continue  # outside the region's DWT support
-                    if cc.cblk_style & 0x40:  # HT (T.814) block coder
-                        # segments are (off, len) ranges into tdata
-                        # (zero-copy) or bytes; pass ranges through
-                        segs_ = cb.segments
-                        cup = segs_[0] if segs_ else b""
-                        if len(segs_) <= 1:
-                            ref = b""
-                        elif len(segs_) == 2:
-                            ref = segs_[1]
+                    fdtype = np.int32 if ccs[c].reversible else np.float64
+                    decoded[c][(r, bi)] = np.zeros((band.h, band.w), fdtype)
+            dests = [] if all_rev else None
+            for c in range(C):
+                cc = ccs[c]
+                border_c = borders[c]
+                for (r, bi) in kepts[c]:
+                    band = resolutions[c][r].bands[bi]
+                    eps, mu = cc.band_q[border_c.index((r, bi))]
+                    mb = (eps + cc.guard_bits - 1
+                          + (cp.rgn.get(c, 0) if cp.rgn else 0))
+                    need = (
+                        _roi_needed_rect(r, cp.levels, *roi) if roi is not None
+                        else None
+                    )
+                    for cb in pdec.band_cblks(c, r, bi):
+                        if not cb.included or cb.num_passes == 0:
+                            continue
+                        if need is not None and (
+                            cb.y1 <= need[0] or cb.x1 <= need[1]
+                            or cb.y0 >= need[2] or cb.x0 >= need[3]
+                        ):
+                            continue  # outside the region's DWT support
+                        if cc.cblk_style & 0x40:  # HT (T.814) block coder
+                            # segments are (off, len) ranges into tdata
+                            # (zero-copy) or bytes; pass ranges through
+                            segs_ = cb.segments
+                            cup = segs_[0] if segs_ else b""
+                            if len(segs_) <= 1:
+                                ref = b""
+                            elif len(segs_) == 2:
+                                ref = segs_[1]
+                            else:
+                                ref = b"".join(_seg_bytes(tdata, x)
+                                               for x in segs_[1:])
+                            batch.add_ht((c, r, bi, cb), cup, ref,
+                                         cb.num_passes, cb.x1 - cb.x0,
+                                         cb.y1 - cb.y0, mb - cb.zero_bps,
+                                         cb.zero_bps + 1)
                         else:
-                            ref = b"".join(_seg_bytes(tdata, x)
-                                           for x in segs_[1:])
-                        batch.add_ht((c, r, bi, cb), cup, ref,
-                                     cb.num_passes, cb.x1 - cb.x0,
-                                     cb.y1 - cb.y0, mb - cb.zero_bps,
-                                     cb.zero_bps + 1)
-                    else:
-                        sty = cc.cblk_style & 0x2F
-                        if sty & 0x05:
-                            # multi-segment blob the native decoder
-                            # parses: [i32 nsegs][i32 lens...][data]
-                            import struct as _st
+                            sty = cc.cblk_style & 0x2F
+                            if sty & 0x05:
+                                # multi-segment blob the native decoder
+                                # parses: [i32 nsegs][i32 lens...][data]
+                                import struct as _st
 
-                            segs = [_seg_bytes(tdata, x)
-                                    for x in cb.segments] or [b""]
-                            seg = (_st.pack(
-                                f"<{1 + len(segs)}i", len(segs),
-                                *[len(x) for x in segs])
-                                + b"".join(segs))
-                        elif len(cb.segments) == 1:
-                            seg = cb.segments[0]
-                        else:
-                            seg = b"".join(_seg_bytes(tdata, x)
-                                           for x in cb.segments)
-                        nbps = max(0, mb - cb.zero_bps)
-                        batch.add_t1((c, r, bi, cb), seg,
-                                     cb.x1 - cb.x0, cb.y1 - cb.y0,
-                                     band.btype, nbps, cb.num_passes,
-                                     style=sty)
-                    if dests is not None:
-                        dests.append((decoded[c][(r, bi)],
-                                      cb.y0 - band.y0, cb.x0 - band.x0))
-        def _rgn_unshift(a, s_):
-            # maxshift decode (T.800 H.2): coefficients whose magnitude
-            # reaches the shifted planes are ROI; scale them back down
-            mag = np.abs(a)
-            hi = mag >= (1 << s_)
-            return np.where(hi, np.sign(a) * (mag >> s_), a)
+                                segs = [_seg_bytes(tdata, x)
+                                        for x in cb.segments] or [b""]
+                                seg = (_st.pack(
+                                    f"<{1 + len(segs)}i", len(segs),
+                                    *[len(x) for x in segs])
+                                    + b"".join(segs))
+                            elif len(cb.segments) == 1:
+                                seg = cb.segments[0]
+                            else:
+                                seg = b"".join(_seg_bytes(tdata, x)
+                                               for x in cb.segments)
+                            nbps = max(0, mb - cb.zero_bps)
+                            batch.add_t1((c, r, bi, cb), seg,
+                                         cb.x1 - cb.x0, cb.y1 - cb.y0,
+                                         band.btype, nbps, cb.num_passes,
+                                         style=sty)
+                        if dests is not None:
+                            dests.append((decoded[c][(r, bi)],
+                                          cb.y0 - band.y0, cb.x0 - band.x0))
+            def _rgn_unshift(a, s_):
+                # maxshift decode (T.800 H.2): coefficients whose magnitude
+                # reaches the shifted planes are ROI; scale them back down
+                mag = np.abs(a)
+                hi = mag >= (1 << s_)
+                return np.where(hi, np.sign(a) * (mag >> s_), a)
 
-        if dests is not None:
-            batch.run_into(dests, num_threads)
-            if cp.rgn:
-                for c in range(C):
-                    s_ = cp.rgn.get(c, 0)
-                    if not s_:
-                        continue
-                    for (r, bi) in kepts[c]:
-                        a = decoded[c][(r, bi)]
-                        a[...] = _rgn_unshift(a, s_)
-        else:
-            for (c, r, bi, cb), blk in batch.run(num_threads):
-                band = resolutions[c][r].bands[bi]
-                if cp.rgn and cp.rgn.get(c, 0):
-                    blk = _rgn_unshift(blk, cp.rgn[c]).astype(np.int32)
-                if not ccs[c].reversible:
-                    eps, mu = ccs[c].band_q[borders[c].index((r, bi))]
-                    rb = depth + band.gain
-                    delta = _eps_mu_to_delta(eps, mu, rb)
-                    mag = np.abs(blk).astype(np.float64)
-                    rec = np.where(mag > 0, (mag + 0.5) * delta, 0.0)
-                    blk = np.sign(blk) * rec
-                decoded[c][(r, bi)][cb.y0 - band.y0 : cb.y1 - band.y0,
-                                    cb.x0 - band.x0 : cb.x1 - band.x0] = blk
+            if dests is not None:
+                batch.run_into(dests, num_threads)
+                if cp.rgn:
+                    for c in range(C):
+                        s_ = cp.rgn.get(c, 0)
+                        if not s_:
+                            continue
+                        for (r, bi) in kepts[c]:
+                            a = decoded[c][(r, bi)]
+                            a[...] = _rgn_unshift(a, s_)
+            else:
+                for (c, r, bi, cb), blk in batch.run(num_threads):
+                    band = resolutions[c][r].bands[bi]
+                    if cp.rgn and cp.rgn.get(c, 0):
+                        blk = _rgn_unshift(blk, cp.rgn[c]).astype(np.int32)
+                    if not ccs[c].reversible:
+                        eps, mu = ccs[c].band_q[borders[c].index((r, bi))]
+                        rb = depth + band.gain
+                        delta = _eps_mu_to_delta(eps, mu, rb)
+                        mag = np.abs(blk).astype(np.float64)
+                        rec = np.where(mag > 0, (mag + 0.5) * delta, 0.0)
+                        blk = np.sign(blk) * rec
+                    decoded[c][(r, bi)][
+                        cb.y0 - band.y0 : cb.y1 - band.y0,
+                        cb.x0 - band.x0 : cb.x1 - band.x0] = blk
+            add_count("imgcodec.jpeg2k.codeblocks", len(batch))
+            charge_ns("imgcodec.jpeg2k.t1", batch.worker_cpu_ns)
 
         if stage is not None:
             if not cp.reversible:

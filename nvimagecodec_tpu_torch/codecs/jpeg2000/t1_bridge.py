@@ -11,6 +11,7 @@ from typing import Tuple
 
 import numpy as np
 
+from ...core.trace import collecting
 from ...native import lib
 
 # Shared thread budget across concurrently decoding images: when the
@@ -96,13 +97,25 @@ def ht_encode(coefs: np.ndarray,
             B.value, umax.value)
 
 
+def _worker_cpu():
+    """(int64 [1] array, its pointer) for a native decode batch to add its
+    own workers' CPU time to while spans are collected; (None, None)
+    otherwise, and the workers read no clock."""
+    if not collecting():
+        return None, None
+    a = np.zeros(1, np.int64)
+    return a, a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
 class BlockBatch:
     """Accumulates code-block decode jobs for one tile and runs them all
     in ONE native call (native/j2k_block_batch.cpp) with internal
     work-stealing threads — replacing ~O(blocks) ctypes calls + Python
     futures whose overhead dominated block decode (the host analog of
     nvjpeg2k's whole-tile batching, extensions/nvjpeg2k/
-    cuda_decoder.cpp:601-640)."""
+    cuda_decoder.cpp:601-640). After a run, `worker_cpu_ns` is the CPU time
+    of the native threads it started (the calling thread's not included),
+    measured only while spans are collected (0 otherwise)."""
 
     def __init__(self, base: bytes = b""):
         # segments are usually (off, len) ranges into `base` (the tile
@@ -115,6 +128,7 @@ class BlockBatch:
         self._results: list = []  # (key, w, h, kind, out_off)
         self._kinds: list = []    # "ht"/"t1" per add, in add order
         self._out_elems = 0
+        self.worker_cpu_ns = 0
 
     def _put(self, seg) -> Tuple[int, int]:
         if type(seg) is tuple:
@@ -204,13 +218,16 @@ class BlockBatch:
             strides = np.asarray(bstrides, np.int64)[bidx]
             addrs = basea + ((rows * strides + cols) * 4).astype(np.uint64)
             rcs = np.zeros(n, np.int32)
+            cpu, cpu_p = _worker_cpu()
             rc = fn(n, blob, m.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                     addrs.ctypes.data_as(
                         ctypes.POINTER(ctypes.POINTER(ctypes.c_int32))),
                     strides.ctypes.data_as(
                         ctypes.POINTER(ctypes.c_int64)),
                     rcs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                    nthreads)
+                    nthreads, cpu_p)
+            if cpu is not None:
+                self.worker_cpu_ns += int(cpu[0])
             if rc != 0:
                 i = int(np.nonzero(rcs)[0][0])
                 kind = "HT" if width == 10 else "T1"
@@ -236,11 +253,14 @@ class BlockBatch:
                     continue
                 m = np.asarray(meta, np.int32)
                 rcs = np.zeros(n, np.int32)
+                cpu, cpu_p = _worker_cpu()
                 rc = fn(n, blob,
                         m.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                         outp,
                         rcs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                        nt)
+                        nt, cpu_p)
+                if cpu is not None:
+                    self.worker_cpu_ns += int(cpu[0])
                 if rc != 0:
                     i = int(np.nonzero(rcs)[0][0])
                     kind = "HT" if fn is L.tic_ht_decode_batch else "T1"

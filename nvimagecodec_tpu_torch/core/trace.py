@@ -14,9 +14,11 @@ kernels (ranges are emitted only when CUDA is available). Between
   thread pools.
 
 `charge(name)` adds a pool task's CPU time to the named span's CPU total and
-leaves no record: cheap enough for each image. `add_count` accumulates
-counters. With collection off a span is one check and its NVTX push and pop;
-`charge` and `bind` are one check.
+leaves no record: cheap enough for each image; `charge_ns(name, ns)` adds CPU
+time measured elsewhere (a native library's own worker threads, which
+`collecting()` tells it to measure). `add_count` accumulates counters. With
+collection off a span is one check and its NVTX push and pop; `charge`,
+`charge_ns` and `bind` are one check.
 """
 from __future__ import annotations
 
@@ -106,6 +108,27 @@ def add_count(name: str, value) -> None:
                 c[name] = c.get(name, 0) + value
 
 
+def collecting() -> bool:
+    """Whether spans and counters are being collected now."""
+    return _COLLECT is not None
+
+
+def _open_span(name: str):
+    """The innermost span named `name` open in the current context, or
+    None."""
+    node = _CURRENT.get()
+    while node is not None and node.name != name:
+        node = node.parent
+    return node
+
+
+def _add_charge(col, key, ns: int) -> None:
+    with _COLLECT_LOCK:
+        if _COLLECT is col:
+            ch = col["charged"]
+            ch[key] = ch.get(key, 0) + ns
+
+
 def _nvtx_on() -> bool:
     if _NVTX[0] is None:
         _NVTX[0] = torch.cuda.is_available()
@@ -176,9 +199,7 @@ class charge:
     def __enter__(self):
         col = self.col = _COLLECT
         if col is not None:
-            node = _CURRENT.get()
-            while node is not None and node.name != self.name:
-                node = node.parent
+            node = _open_span(self.name)
             if node is not None and node.thread == threading.get_ident():
                 self.col = None
                 return self
@@ -189,12 +210,19 @@ class charge:
     def __exit__(self, *exc):
         col = self.col
         if col is not None:
-            ns = time.thread_time_ns() - self.c0
-            with _COLLECT_LOCK:
-                if _COLLECT is col:
-                    ch = col["charged"]
-                    ch[self.key] = ch.get(self.key, 0) + ns
+            _add_charge(col, self.key, time.thread_time_ns() - self.c0)
         return False
+
+
+def charge_ns(name: str, ns: int) -> None:
+    """Add `ns` of CPU time spent on threads that open no span (a native
+    library's workers, which measure it only while `collecting()`) to the
+    CPU total of span `name`, the innermost of that name open in the
+    caller's context, while collecting."""
+    col = _COLLECT
+    if col is not None and ns:
+        node = _open_span(name)
+        _add_charge(col, (node.id if node is not None else None, name), ns)
 
 
 def bind(fn):

@@ -231,13 +231,14 @@ def _declare_j2k(L: ctypes.CDLL) -> None:
                                 c_i32, c_i32, i32p],
         "tic_ht_encode_block": [i32p, c_i32, c_i32, c_i32, u8p, c_i32, i32p,
                                 i32p, i32p, i32p],
-        # Tier-1, a tile's blocks in one call
-        "tic_t1_decode_batch": [c_i32, cp, i32p, i32p, i32p, c_i32],
-        "tic_ht_decode_batch": [c_i32, cp, i32p, i32p, i32p, c_i32],
+        # Tier-1, a tile's blocks in one call; the last argument of the
+        # decodes takes the CPU time of the workers they start (or None)
+        "tic_t1_decode_batch": [c_i32, cp, i32p, i32p, i32p, c_i32, i64p],
+        "tic_ht_decode_batch": [c_i32, cp, i32p, i32p, i32p, c_i32, i64p],
         "tic_t1_decode_batch_into": [c_i32, cp, i32p, i32pp, i64p, i32p,
-                                     c_i32],
+                                     c_i32, i64p],
         "tic_ht_decode_batch_into": [c_i32, cp, i32p, i32pp, i64p, i32p,
-                                     c_i32],
+                                     c_i32, i64p],
         "tic_t1_encode_batch_addr": [c_i32, i32pp, i64p, i64p, u8p, i64p,
                                      i32p, i32p, c_i32],
         "tic_ht_encode_batch_addr": [c_i32, i32pp, i64p, i64p, u8p, i64p,

@@ -12,8 +12,46 @@
 #include <atomic>
 #include <cstring>
 #include <cstdint>
+#include <ctime>
 #include <thread>
 #include <vector>
+
+namespace {
+
+// Runs `worker` on the calling thread and on nthreads - 1 threads of its
+// own (at most n - 1: one a job). Where cpu_ns is given, adds those
+// threads' CPU time (CLOCK_THREAD_CPUTIME_ID, read once as each ends) to
+// *cpu_ns; the calling thread's share is its caller's to count. The
+// decode entries take cpu_ns from a caller that is collecting spans, and
+// null otherwise.
+template <class F>
+void fan_out(int32_t n, int32_t nthreads, F& worker,
+             int64_t* cpu_ns = nullptr) {
+    int nt = nthreads < 1 ? 1 : (nthreads > n ? n : nthreads);
+    if (nt <= 1) {
+        worker();
+        return;
+    }
+    std::atomic<int64_t> spent(0);
+    std::vector<std::thread> ts;
+    ts.reserve(nt - 1);
+    for (int t = 0; t < nt - 1; t++)
+        ts.emplace_back([&]() {
+            worker();
+            if (cpu_ns) {
+                timespec ts_cpu;
+                clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts_cpu);
+                spent.fetch_add(int64_t(ts_cpu.tv_sec) * 1000000000 +
+                                    ts_cpu.tv_nsec,
+                                std::memory_order_relaxed);
+            }
+        });
+    worker();
+    for (auto& t : ts) t.join();
+    if (cpu_ns) *cpu_ns += spent.load();
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -32,9 +70,11 @@ int tic_j2k_t1_decode_strided_style(const uint8_t* data, int len, int w,
 // meta: 10 int32 per block —
 //   [cup_off, cup_len, ref_off, ref_len, num_passes, w, h, B, Ucap, out_off]
 // out_off indexes int32 elements of `out`. rcs: per-block return codes.
-// Returns the first nonzero rc (0 if all blocks decoded).
+// cpu_ns (nullable): the CPU time of the workers this call starts is added
+// to it (fan_out). Returns the first nonzero rc (0 if all blocks decoded).
 int tic_ht_decode_batch(int32_t n, const uint8_t* blob, const int32_t* meta,
-                        int32_t* out, int32_t* rcs, int32_t nthreads) {
+                        int32_t* out, int32_t* rcs, int32_t nthreads,
+                        int64_t* cpu_ns) {
     std::atomic<int32_t> next(0);
     std::atomic<int32_t> bad(0);
     auto worker = [&]() {
@@ -50,25 +90,15 @@ int tic_ht_decode_batch(int32_t n, const uint8_t* blob, const int32_t* meta,
             if (rc) bad.store(rc, std::memory_order_relaxed);
         }
     };
-    int nt = nthreads;
-    if (nt < 1) nt = 1;
-    if (nt > n) nt = n;
-    if (nt <= 1) {
-        worker();
-    } else {
-        std::vector<std::thread> ts;
-        ts.reserve(nt - 1);
-        for (int t = 0; t < nt - 1; t++) ts.emplace_back(worker);
-        worker();
-        for (auto& t : ts) t.join();
-    }
+    fan_out(n, nthreads, worker, cpu_ns);
     return bad.load();
 }
 
 // meta: 8 int32 per block —
 //   [seg_off, seg_len, w, h, band, num_bps, num_passes, out_off]
 int tic_t1_decode_batch(int32_t n, const uint8_t* blob, const int32_t* meta,
-                        int32_t* out, int32_t* rcs, int32_t nthreads) {
+                        int32_t* out, int32_t* rcs, int32_t nthreads,
+                        int64_t* cpu_ns) {
     std::atomic<int32_t> next(0);
     std::atomic<int32_t> bad(0);
     auto worker = [&]() {
@@ -84,18 +114,7 @@ int tic_t1_decode_batch(int32_t n, const uint8_t* blob, const int32_t* meta,
             if (rc) bad.store(rc, std::memory_order_relaxed);
         }
     };
-    int nt = nthreads;
-    if (nt < 1) nt = 1;
-    if (nt > n) nt = n;
-    if (nt <= 1) {
-        worker();
-    } else {
-        std::vector<std::thread> ts;
-        ts.reserve(nt - 1);
-        for (int t = 0; t < nt - 1; t++) ts.emplace_back(worker);
-        worker();
-        for (auto& t : ts) t.join();
-    }
+    fan_out(n, nthreads, worker, cpu_ns);
     return bad.load();
 }
 
@@ -109,7 +128,7 @@ int tic_t1_decode_batch(int32_t n, const uint8_t* blob, const int32_t* meta,
 int tic_t1_decode_batch_into(int32_t n, const uint8_t* blob,
                              const int32_t* meta, int32_t* const* dests,
                              const int64_t* strides, int32_t* rcs,
-                             int32_t nthreads) {
+                             int32_t nthreads, int64_t* cpu_ns) {
     std::atomic<int32_t> next(0);
     std::atomic<int32_t> bad(0);
     auto worker = [&]() {
@@ -125,15 +144,7 @@ int tic_t1_decode_batch_into(int32_t n, const uint8_t* blob,
             if (rc) bad.store(rc, std::memory_order_relaxed);
         }
     };
-    int nt = nthreads < 1 ? 1 : (nthreads > n ? n : nthreads);
-    if (nt <= 1) {
-        worker();
-    } else {
-        std::vector<std::thread> ts;
-        for (int t = 0; t < nt - 1; t++) ts.emplace_back(worker);
-        worker();
-        for (auto& t : ts) t.join();
-    }
+    fan_out(n, nthreads, worker, cpu_ns);
     return bad.load();
 }
 
@@ -146,7 +157,7 @@ int tic_ht_decode_block_strided(const uint8_t* cup, int32_t lcup,
 int tic_ht_decode_batch_into(int32_t n, const uint8_t* blob,
                              const int32_t* meta, int32_t* const* dests,
                              const int64_t* strides, int32_t* rcs,
-                             int32_t nthreads) {
+                             int32_t nthreads, int64_t* cpu_ns) {
     std::atomic<int32_t> next(0);
     std::atomic<int32_t> bad(0);
     auto worker = [&]() {
@@ -163,15 +174,7 @@ int tic_ht_decode_batch_into(int32_t n, const uint8_t* blob,
             if (rc) bad.store(rc, std::memory_order_relaxed);
         }
     };
-    int nt = nthreads < 1 ? 1 : (nthreads > n ? n : nthreads);
-    if (nt <= 1) {
-        worker();
-    } else {
-        std::vector<std::thread> ts;
-        for (int t = 0; t < nt - 1; t++) ts.emplace_back(worker);
-        worker();
-        for (auto& t : ts) t.join();
-    }
+    fan_out(n, nthreads, worker, cpu_ns);
     return bad.load();
 }
 
@@ -220,15 +223,7 @@ int tic_t1_encode_batch_seg(int32_t n, const int32_t* coefs,
             if (rc) bad.store(rc, std::memory_order_relaxed);
         }
     };
-    int nt = nthreads < 1 ? 1 : (nthreads > n ? n : nthreads);
-    if (nt <= 1) {
-        worker();
-    } else {
-        std::vector<std::thread> ts;
-        for (int t = 0; t < nt - 1; t++) ts.emplace_back(worker);
-        worker();
-        for (auto& t : ts) t.join();
-    }
+    fan_out(n, nthreads, worker);
     return bad.load();
 }
 
@@ -258,15 +253,7 @@ int tic_t1_encode_batch(int32_t n, const int32_t* coefs,
             if (rc) bad.store(rc, std::memory_order_relaxed);
         }
     };
-    int nt = nthreads < 1 ? 1 : (nthreads > n ? n : nthreads);
-    if (nt <= 1) {
-        worker();
-    } else {
-        std::vector<std::thread> ts;
-        for (int t = 0; t < nt - 1; t++) ts.emplace_back(worker);
-        worker();
-        for (auto& t : ts) t.join();
-    }
+    fan_out(n, nthreads, worker);
     return bad.load();
 }
 
@@ -297,15 +284,7 @@ int tic_ht_encode_batch(int32_t n, const int32_t* coefs,
             if (rc) bad.store(rc, std::memory_order_relaxed);
         }
     };
-    int nt = nthreads < 1 ? 1 : (nthreads > n ? n : nthreads);
-    if (nt <= 1) {
-        worker();
-    } else {
-        std::vector<std::thread> ts;
-        for (int t = 0; t < nt - 1; t++) ts.emplace_back(worker);
-        worker();
-        for (auto& t : ts) t.join();
-    }
+    fan_out(n, nthreads, worker);
     return bad.load();
 }
 
@@ -348,15 +327,7 @@ int tic_t1_encode_batch_addr(int32_t n, const int32_t* const* srcs,
             if (rc) bad.store(rc, std::memory_order_relaxed);
         }
     };
-    int nt = nthreads < 1 ? 1 : (nthreads > n ? n : nthreads);
-    if (nt <= 1) {
-        worker();
-    } else {
-        std::vector<std::thread> ts;
-        for (int t = 0; t < nt - 1; t++) ts.emplace_back(worker);
-        worker();
-        for (auto& t : ts) t.join();
-    }
+    fan_out(n, nthreads, worker);
     return bad.load();
 }
 
@@ -391,15 +362,7 @@ int tic_ht_encode_batch_addr(int32_t n, const int32_t* const* srcs,
             if (rc) bad.store(rc, std::memory_order_relaxed);
         }
     };
-    int nt = nthreads < 1 ? 1 : (nthreads > n ? n : nthreads);
-    if (nt <= 1) {
-        worker();
-    } else {
-        std::vector<std::thread> ts;
-        for (int t = 0; t < nt - 1; t++) ts.emplace_back(worker);
-        worker();
-        for (auto& t : ts) t.join();
-    }
+    fan_out(n, nthreads, worker);
     return bad.load();
 }
 
