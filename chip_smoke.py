@@ -25,13 +25,14 @@ kernels (launch counts set to 0 just before the path, read just after):
 - cli: `python -m nvimagecodec_tpu_torch.cli` imtrans on 16 JPEGs and improc
   --resize on one, as a user would run them;
 - j2k path: 8 lossless 1024x1024 RGB JPEG2000 streams (5 levels, made at run
-  time by the port's own encoder) through the public Decoder: Tier-2 and
-  Tier-1 on the host, all subbands up in one pinned buffer, IDWT + inverse
-  RCT + level shift as torch ops on the card (no hand-written kernel: the
-  JAX package has none there either), equal to the photos and to the CPU
-  decode; then a uniform and a partial tile grid, 9/7, 16-bit, gray, HT and
-  the committed HTJ2K streams, a J2K encode of a CUDA tensor, and a forced
-  failure of the device stage, which must raise and reach no other decoder;
+  time by the port's own encoder) through the public Decoder: Tier-2 on the
+  host, the code-block table and codestream up in one pinned buffer, Tier-1
+  by csrc/j2k_t1.cu (one launch a stream) into the subbands on the card,
+  IDWT + inverse RCT + level shift as torch ops there, equal to the photos
+  and to the CPU decode; then a uniform and a partial tile grid, 9/7,
+  16-bit, gray, HT and the committed HTJ2K streams, a J2K encode of a CUDA
+  tensor, and a forced failure of the device stage, which must raise and
+  reach no other decoder;
 - mesh path: `Decoder(mesh=make_mesh())` over every visible card
   equals `Decoder()`; a dp=2 mesh of cuda:0 twice decodes the main and dri
   corpora bit-exactly to the unsharded decode with K2 once and K1 three
@@ -295,7 +296,7 @@ def main() -> int:
     # 12) the command line, as a user would run it
     cli_phase(uniq, dec)
 
-    # 13) the J2K path: host Tier-2 / Tier-1, pixel stage on the card
+    # 13) the J2K path: host Tier-2, Tier-1 and the pixel stage on the card
     j2k = j2k_phase(dev)
     j2k_frames_phase(j2k["photos"][0], dev)
     j2k_encode_phase(j2k["photos"][1], dev)
@@ -365,7 +366,7 @@ def main() -> int:
 
     encode_times(imgs, jpgs, dec, params, dev, card, encode_frame)
     fdct = fdct_times(enc_path["fdct_in"], card)
-    j2k_times(j2k, dev, card)
+    t1 = j2k_times(j2k, dev, card)
     mesh_times(jpgs, mesh["decoder"], card)
 
     # 16) the port's bench, at its quick size, in processes of its own
@@ -430,6 +431,13 @@ def main() -> int:
          "launches_by_path": {"encode": enc_path["launches"]["FDCT"],
                               "transcode": trans["launches"]["FDCT"],
                               "mesh": mesh["launches"]["FDCT"]}},
+        {"name": "J2K Tier-1 decode_codeblocks", "route": "cuda",
+         "source": "nvimagecodec_tpu_torch/csrc/j2k_t1.cu",
+         # the JAX package decodes Tier-1 on the host (no Pallas kernel)
+         "replaces": None, "launches": J2K_BATCH, "max_abs_err": 0,
+         "ms": t1["kernel_ms"], "plain_ms": t1["native_ms"],
+         "bound_ms": t1["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "launches_by_path": {"j2k": J2K_BATCH}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1581,6 +1589,62 @@ def mesh_phase(jpgs, imgs, dec, params, j2k):
     return out
 
 
+def j2k_t1_times(data, photo, dev, card):
+    """The Tier-1 kernel (csrc/j2k_t1.cu) on every code-block of one
+    1024x1024x3 lossless stream, beside its bytes bound and the native host
+    decoder on the same staged blocks, and the device route's whole stage
+    (upload of the table and codestream, Tier-1, IDWT, RCT, shift)."""
+    import os
+
+    import torch
+
+    from nvimagecodec_tpu_torch.codecs.jpeg2000 import core as j2k_core
+    from nvimagecodec_tpu_torch.ops import j2k_t1
+
+    t0 = time.perf_counter()
+    job = j2k_core._decode_host_stages(data, 0, dev, 0, None, False)
+    host_stage_ms = (time.perf_counter() - t0) * 1e3
+    if job.stage.t1 is None:
+        raise RuntimeError("j2k t1 times: the stream kept the host Tier-1")
+    buf, lay = job.stage.t1.staged(
+        lambda n: torch.empty(n, dtype=torch.uint8, pin_memory=True))
+    staged = buf.to(dev)
+    out = torch.zeros(job.stage.offs[-1], dtype=torch.int32, device=dev)
+    want = torch.zeros(job.stage.offs[-1], dtype=torch.int32)
+    j2k_t1.decode_codeblocks(staged, lay, out)
+    j2k_t1.decode_codeblocks_plain(buf, lay, want)
+    if not torch.equal(out.cpu(), want):
+        raise RuntimeError("j2k t1 times: kernel != native host decoder")
+    # the kernel writes every coefficient of its blocks, so it runs again
+    # on the same buffer
+    kernel_ms = cuda_ms(lambda i: j2k_t1.decode_codeblocks(staged, lay, out),
+                        20)
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        j2k_t1.decode_codeblocks_plain(buf, lay, torch.zeros_like(want))
+    native_ms = (time.perf_counter() - t0) / reps * 1e3
+    in_b = buf.numel()
+    out_b = out.numel() * out.element_size()
+    bound_ms = (in_b + out_b) / HBM_BYTES_PER_S * 1e3
+    img = j2k_core._run_device_stage(job)
+    if not torch.equal(img.cpu(), torch.from_numpy(photo)):
+        raise RuntimeError("j2k t1 times: the device route is not exact")
+    stage_ms = cuda_ms(lambda i: j2k_core._run_device_stage(job), 10)
+    phase("times", f"on {card}: J2K Tier-1 kernel on one lossless "
+          f"{J2K_HW}x{J2K_HW}x3 stream, {lay.rows} code-blocks (CUDA events) "
+          f"{kernel_ms:.4f} ms, bit-exact with the native host decoder on "
+          f"the same blocks ({os.cpu_count()} threads: {native_ms:.3f} ms); "
+          f"bytes bound {bound_ms:.4f} ms ({in_b} B of table and codestream "
+          f"read + {out_b} B of int32 subbands written over 3.35 TB/s); the "
+          f"device route's stage (upload, Tier-1, IDWT, RCT, shift) "
+          f"{stage_ms:.4f} ms; its host stages (Tier-2, the block table) "
+          f"{host_stage_ms:.1f} ms")
+    return {"kernel_ms": kernel_ms, "native_ms": native_ms,
+            "bound_ms": bound_ms, "stage_ms": stage_ms,
+            "host_stage_ms": host_stage_ms}
+
+
 def mesh_times(jpgs, mdec, card):
     """Informational: Decoder(mesh=dp2 on one card) images/s beside the
     unsharded Decoder on the main corpus, alternated within this call."""
@@ -1655,6 +1719,7 @@ def j2k_phase(dev):
 
     import nvimagecodec_tpu_torch as nic
     from nvimagecodec_tpu_torch.codecs.jpeg2000.core import encode_j2k
+    from nvimagecodec_tpu_torch.ops import j2k_t1
     from util import make_photo
 
     t0 = time.perf_counter()
@@ -1667,12 +1732,17 @@ def j2k_phase(dev):
     dec = nic.Decoder(device="cuda",
                       backends=[nic.Backend(nic.BackendKind.HYBRID_CPU_GPU)])
     before = j2k_routes()
+    launched = j2k_t1.decode_codeblocks.launches
     with no_host_idwt():
         imgs = dec.decode(streams)
         torch.cuda.synchronize()
     took = j2k_took(before)
     if took != {"device": J2K_BATCH, "device_tiles": 0, "host": 0}:
         raise RuntimeError(f"j2k path: not all on the device route: {took}")
+    launched = j2k_t1.decode_codeblocks.launches - launched
+    if launched != J2K_BATCH:
+        raise RuntimeError(f"j2k path: {launched} Tier-1 launches for "
+                           f"{J2K_BATCH} streams")
     for j, (im, photo) in enumerate(zip(imgs, photos)):
         if (im is None or not im.array.is_cuda or im.dtype != np.uint8
                 or im.shape != (J2K_HW, J2K_HW, 3)):
@@ -1686,8 +1756,8 @@ def j2k_phase(dev):
     phase("j2k_path", f"{J2K_BATCH}/{J2K_BATCH} lossless {J2K_HW}x{J2K_HW}x3 "
           f"streams ({sum(map(len, streams)) // J2K_BATCH} B mean, encoded "
           f"here in {enc_s:.2f} s) -> CUDA uint8 via the device route {took}; "
-          f"each equals its photo and the CPU decode (max |diff| {diff}); no "
-          "host IDWT ran")
+          f"each equals its photo and the CPU decode (max |diff| {diff}); "
+          f"{launched} Tier-1 launches; no host IDWT ran")
     return {"photos": photos, "streams": streams}
 
 
@@ -1863,9 +1933,16 @@ def j2k_times(j2k, dev, card):
     from util import make_photo
 
     data, photo = j2k["streams"][0], j2k["photos"][0]
-    t0 = time.perf_counter()
-    job = j2k_core._decode_host_stages(data, 0, dev, 0, None, False)
-    host_stage_ms = (time.perf_counter() - t0) * 1e3
+    # the pixel stage alone: a job with its Tier-1 on the host, whose
+    # subbands go up whole
+    rule = j2k_core.tier1_on_device
+    j2k_core.tier1_on_device = lambda *a: False
+    try:
+        t0 = time.perf_counter()
+        job = j2k_core._decode_host_stages(data, 0, dev, 0, None, False)
+        host_stage_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        j2k_core.tier1_on_device = rule
     flat = job.stage.flat
     out = j2k_core._run_device_stage(job)
     if not torch.equal(out.cpu(), torch.from_numpy(photo)):
@@ -1941,6 +2018,8 @@ def j2k_times(j2k, dev, card):
           f" ms on one thread, {host_ms['plane pool']:.3f} ms over the plane "
           "pool")
 
+    t1 = j2k_t1_times(data, photo, dev, card)
+
     # Decoder.decode per route, alternated within this call
     dec_dev = nic.Decoder(device="cuda")
     dec_host = nic.Decoder(device="cuda", options=(
@@ -1996,6 +2075,7 @@ def j2k_times(j2k, dev, card):
           "RGB stream a call, images/s with the device stage forced against "
           f"device_pixel_stage=false (floor today: "
           f"{j2k_core.DEVICE_STAGE_MIN_PIXELS} pixels): " + "; ".join(rows))
+    return t1
 
 
 if __name__ == "__main__":

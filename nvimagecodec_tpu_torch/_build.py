@@ -124,6 +124,8 @@ def _declare(L: ctypes.CDLL) -> None:
         i32, vp, i32, i64, vp, vp, i32, i32, vp, i32, i32, i32p, i32p, vpp,
         i32, i64, i32, i32, i32, i32, vp, i32, vp]
     L.tic_prog_huffman_decode_into.restype = i32
+    L.tic_j2k_t1_decode_blocks.argtypes = [vp, i32, vp, vp, i32, i32, vp]
+    L.tic_j2k_t1_decode_blocks.restype = i32
 
 
 def check(rc: int, what: str) -> None:

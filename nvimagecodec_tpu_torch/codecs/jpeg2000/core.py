@@ -1,14 +1,19 @@
 """JPEG2000 encode/decode pipelines.
 
 The port of nvimagecodec_tpu/codecs/jpeg2000/core.py. Hybrid split mirroring
-the JPEG codec: the bit-serial EBCOT Tier-1 runs on the host (native C++,
-fanned over a thread pool per codeblock — the analog of the reference's
-per-tile resource pool, extensions/nvjpeg2k/cuda_decoder.cpp:601-640). The
-inverse DWT, inverse MCT and level shift run either on the host (native 5/3
-synthesis and epilogue, torch lifting on CPU tensors for 9/7: `device=None`)
-or as torch ops on the caller's device (`device=torch.device(...)`), where
-every subband of a tile, or of all tiles of a uniform grid, goes up in one
-pinned buffer and one copy. The encoder is host code throughout.
+the JPEG codec: Tier-2 runs on the host. The bit-serial EBCOT Tier-1 runs on
+the host (native C++, fanned over a thread pool per codeblock — the analog
+of the reference's per-tile resource pool, extensions/nvjpeg2k/
+cuda_decoder.cpp:601-640), or, for the reversible part-1 tiles of the device
+stage on a CUDA device (`tier1_on_device`), on the card: the host builds a
+table of the code-blocks (ops/j2k_t1.py) that goes up with the codestream,
+and a kernel decodes every block into the subbands there, as nvjpeg2k does
+in the reference. The inverse DWT, inverse MCT and level shift run either on
+the host (native 5/3 synthesis and epilogue, torch lifting on CPU tensors
+for 9/7: `device=None`) or as torch ops on the caller's device
+(`device=torch.device(...)`), where every subband of a tile, or of all tiles
+of a uniform grid, is in one buffer: decoded on the card, or uploaded from
+one pinned buffer in one copy. The encoder is host code throughout.
 
 All part-1 code-block styles are handled natively (see native/j2k_t1.cpp).
 """
@@ -28,6 +33,7 @@ import torch
 
 from ...core.trace import add_count, charge_ns, span
 from ...ops import dwt as dwt_ops
+from ...ops import j2k_t1
 from ...parallel.tiles import idwt_tiles_sharded
 from .codestream import (
     COD,
@@ -717,13 +723,28 @@ def device_route_auto(npixels: int, device) -> bool:
             and npixels >= DEVICE_STAGE_MIN_PIXELS)
 
 
-def _upload_buffer(n: int, dtype: torch.dtype, device) -> torch.Tensor:
-    """A zeroed host buffer of n elements, pinned for a CUDA device. Pinning
-    goes through the CUDA runtime, so its failure is the device stage's."""
+def tier1_on_device(device, reversible: bool, ht: bool, rgn: bool,
+                    mesh: bool, cblk_area: int) -> bool:
+    """Whether a tile the device pixel stage takes also decodes its
+    code-blocks on the card (ops/j2k_t1.py): on a CUDA device, with every
+    component reversible (the int32 stage), no HT blocks, no ROI shift, no
+    mesh, and code-blocks of at most j2k_t1.MAX_BLOCK_AREA coefficients (as
+    T.800 bounds them). Any other tile keeps the host Tier-1."""
+    return (device is not None and torch.device(device).type == "cuda"
+            and reversible and not ht and not rgn and not mesh
+            and cblk_area <= j2k_t1.MAX_BLOCK_AREA)
+
+
+def _upload_buffer(n: int, dtype: torch.dtype, device,
+                   zero: bool = True) -> torch.Tensor:
+    """A host buffer of n elements, zeroed where `zero`, pinned for a CUDA
+    device. Pinning goes through the CUDA runtime, so its failure is the
+    device stage's."""
+    make = torch.zeros if zero else torch.empty
     if device.type != "cuda":
-        return torch.zeros(n, dtype=dtype)
+        return make(n, dtype=dtype)
     try:
-        return torch.zeros(n, dtype=dtype, pin_memory=True)
+        return make(n, dtype=dtype, pin_memory=True)
     except Exception as e:
         raise J2kDeviceStageError(
             f"J2K device pixel stage failed on {device}: pinned upload "
@@ -732,29 +753,43 @@ def _upload_buffer(n: int, dtype: torch.dtype, device) -> torch.Tensor:
 
 class _SubbandStage:
     """All subbands of one tile, or of every tile of a uniform grid, in ONE
-    host buffer (pinned for a CUDA device) that goes up in one copy.
+    flat buffer that the pixel stage reads.
 
     `lead` is (C,) or (T, C); leaf i is the [*lead, h, w] stack of one
-    subband: LL first, then (HL, LH, HH) per level, finest first. The T1
-    decoder writes int32 blocks straight into the leaves' views; float
-    leaves are filled by an assignment that casts, so the buffer is written
-    once and never repacked."""
+    subband: LL first, then (HL, LH, HH) per level, finest first. With
+    `host`, the buffer is on the host (pinned for a CUDA device) and goes up
+    in one copy: the T1 decoder writes int32 blocks straight into the
+    leaves' views; float leaves are filled by an assignment that casts, so
+    the buffer is written once and never repacked. Without, Tier-1 runs on
+    the device: `t1` holds the code-block table (ops/j2k_t1.py), which goes
+    up with the codestream instead, and the buffer is made zeroed on the
+    device and decoded into there."""
 
-    def __init__(self, lead, band_dims, dtype: torch.dtype, device):
+    def __init__(self, lead, band_dims, dtype: torch.dtype, device,
+                 host: bool = True):
         self.lead = tuple(lead)
         self.shapes = [self.lead + tuple(d) for d in band_dims]
         sizes = [math.prod(sh) for sh in self.shapes]
         self.offs = [0]
         for n in sizes:
             self.offs.append(self.offs[-1] + n)
-        self.flat = _upload_buffer(self.offs[-1], dtype, device)
-        flat_np = self.flat.numpy()
-        self.leaves = [flat_np[self.offs[i]:self.offs[i + 1]].reshape(sh)
-                       for i, sh in enumerate(self.shapes)]
+        self.t1 = None  # the j2k_t1.BlockTable without `host`
+        self.flat = self.leaves = None
+        if host:
+            self.flat = _upload_buffer(self.offs[-1], dtype, device)
+            flat_np = self.flat.numpy()
+            self.leaves = [flat_np[self.offs[i]:self.offs[i + 1]].reshape(sh)
+                           for i, sh in enumerate(self.shapes)]
 
     @staticmethod
     def leaf_index(levels: int, r: int, bi: int) -> int:
         return 0 if r == 0 else 1 + 3 * (levels - r) + bi
+
+    def plane_offset(self, i: int, idx) -> int:
+        """Element offset in the flat buffer of leaf i's plane at lead index
+        `idx`."""
+        h, w = self.shapes[i][-2:]
+        return self.offs[i] + int(np.ravel_multi_index(idx, self.lead)) * h * w
 
     def host_tensors(self):
         """(LL, bands finest-first) as CPU tensor views of the host buffer
@@ -767,12 +802,27 @@ class _SubbandStage:
 
     def upload(self, device):
         """One copy; (LL, bands finest-first) as views of the device
-        buffer."""
+        buffer. Where Tier-1 runs on the device, the copy is of the table
+        and codestream, staged here in one pinned buffer (under the caller's
+        launch lock: the pinned allocator calls into the driver), and the
+        code-blocks are then decoded into a zeroed device buffer (one
+        launch, not synchronised)."""
         with span("imgcodec.jpeg2k.upload"):
-            dev = self.flat.to(device, non_blocking=True)
+            if self.t1 is None:
+                src = self.flat
+            else:
+                src, layout = self.t1.staged(lambda n: _upload_buffer(
+                    n, torch.uint8, device, zero=False))
+            dev = src.to(device, non_blocking=True)
             add_count("imgcodec.jpeg2k.h2d_bytes",
-                      self.flat.numel() * self.flat.element_size()
+                      src.numel() * src.element_size()
                       if device.type == "cuda" else 0)
+        if self.t1 is not None:
+            with span("imgcodec.jpeg2k.t1_launch"):
+                staged = dev
+                dev = torch.zeros(self.offs[-1], dtype=torch.int32,
+                                  device=device)
+                j2k_t1.decode_codeblocks(staged, layout, dev)
         lv = [dev[self.offs[i]:self.offs[i + 1]].view(sh)
               for i, sh in enumerate(self.shapes)]
         bands = [tuple(lv[1 + 3 * k:4 + 3 * k])
@@ -901,6 +951,8 @@ def _run_device_stage(job: _DeviceJob, mesh=None) -> torch.Tensor:
                             px.view(grid[0], grid[1], C, th, tw).permute(
                                 0, 3, 1, 4, 2), depth
                         ).view(grid[0] * th, grid[1] * tw, C)
+    except J2kDeviceStageError:
+        raise
     except Exception as e:
         raise J2kDeviceStageError(
             f"J2K device pixel stage failed on {device}: "
@@ -980,7 +1032,8 @@ def decode_j2k(
         device = torch.device(device)
     with span("imgcodec.jpeg2k.host_stage"):
         res = _decode_host_stages(bytes(data), num_threads, device,
-                                  discard_levels, region, planar)
+                                  discard_levels, region, planar,
+                                  mesh=mesh)
     if isinstance(res, _DeviceJob):
         img = _run_device_stage(res, mesh)
         _count_route("device" if res.grid is None else "device_tiles")
@@ -990,10 +1043,12 @@ def decode_j2k(
 
 
 def _decode_host_stages(data: bytes, num_threads: int, device,
-                        discard_levels: int, region, planar: bool):
+                        discard_levels: int, region, planar: bool,
+                        mesh=None):
     """Tier-2 and Tier-1 of every tile, then either the host pixel stage
     (the image as numpy) or, where `device` is named and the stream allows
-    it, the filled upload buffer as a _DeviceJob."""
+    it, a _DeviceJob: the filled upload buffer, or, where Tier-1 runs on
+    the device (`tier1_on_device`), the staged code-block table."""
     cs = unwrap_jp2(bytes(data))
     add_count("imgcodec.jpeg2k.stream_bytes", len(cs))
     siz, cp, pos = parse_main_header(cs, 0)
@@ -1091,10 +1146,18 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
         and siz.tile_w % (1 << cp.levels) == 0
         and siz.tile_h % (1 << cp.levels) == 0
     )
-    # the one host buffer the subbands are decoded into (made at the first
-    # tile, whose geometry every tile of a uniform grid shares)
+    # the one buffer the subbands are decoded into (made at the first
+    # tile, whose geometry every tile of a uniform grid shares), and, where
+    # Tier-1 runs on the device, the table of every tile's code-blocks
     stage = None
     stage_dtype = torch.int32 if cp.reversible else torch.float32
+    table = None
+    if (single_tile or uniform_grid) and tier1_on_device(
+            device, all(cc.reversible for cc in ccs),
+            any(cc.cblk_style & 0x40 for cc in ccs),
+            any((cp.rgn or {}).values()), mesh is not None,
+            cp.cblk_w * cp.cblk_h):
+        table = j2k_t1.BlockTable()
     tiles_seen = set()
 
     for tidx, tdata, ppt, tpoc in iter_tile_parts(cs, pos, ppm=cp.ppm):
@@ -1157,11 +1220,14 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
                     band.h, band.w)
             stage = _SubbandStage(
                 (ntiles_total, C) if uniform_grid else (C,), band_dims,
-                stage_dtype, device)
+                stage_dtype, device, host=table is None)
         # Tier-1: every code-block of the tile in one native batch
         with span("imgcodec.jpeg2k.t1"):
             planes = []
-            batch = BlockBatch(base=tdata)
+            if table is None:
+                batch = BlockBatch(base=tdata)
+            else:
+                table.add_tile(tdata)
             borders = [_band_order(ccs[c]) for c in range(C)]
             kepts = [[(r, bi) for (r, bi) in borders[c]
                       if r <= ccs[c].levels - discard_levels]
@@ -1175,6 +1241,8 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
             for c in range(C):
                 for (r, bi) in kepts[c]:
                     band = resolutions[c][r].bands[bi]
+                    if table is not None:
+                        continue  # decoded on the device
                     if stage is not None and cp.reversible:
                         # T1 decodes straight into the upload buffer
                         leaf = stage.leaves[
@@ -1184,7 +1252,7 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
                         continue
                     fdtype = np.int32 if ccs[c].reversible else np.float64
                     decoded[c][(r, bi)] = np.zeros((band.h, band.w), fdtype)
-            dests = [] if all_rev else None
+            dests = [] if all_rev and table is None else None
             for c in range(C):
                 cc = ccs[c]
                 border_c = borders[c]
@@ -1193,6 +1261,10 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
                     eps, mu = cc.band_q[border_c.index((r, bi))]
                     mb = (eps + cc.guard_bits - 1
                           + (cp.rgn.get(c, 0) if cp.rgn else 0))
+                    if table is not None:  # the plane in the flat buffer
+                        plane = stage.plane_offset(
+                            _SubbandStage.leaf_index(cp.levels, r, bi),
+                            (tidx, c) if uniform_grid else (c,))
                     need = (
                         _roi_needed_rect(r, cp.levels, *roi) if roi is not None
                         else None
@@ -1240,6 +1312,13 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
                                 seg = b"".join(_seg_bytes(tdata, x)
                                                for x in cb.segments)
                             nbps = max(0, mb - cb.zero_bps)
+                            if table is not None:
+                                table.add(seg, cb.x1 - cb.x0, cb.y1 - cb.y0,
+                                          band.btype, nbps, cb.num_passes,
+                                          sty, plane + (cb.y0 - band.y0)
+                                          * band.w + cb.x0 - band.x0,
+                                          band.w)
+                                continue
                             batch.add_t1((c, r, bi, cb), seg,
                                          cb.x1 - cb.x0, cb.y1 - cb.y0,
                                          band.btype, nbps, cb.num_passes,
@@ -1254,7 +1333,13 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
                 hi = mag >= (1 << s_)
                 return np.where(hi, np.sign(a) * (mag >> s_), a)
 
-            if dests is not None:
+            if table is not None:
+                n = table.end_tile()
+                add_count("imgcodec.jpeg2k.codeblocks", n)
+                # sent to the card's Tier-1 (tier1_on_device: CUDA only)
+                add_count("imgcodec.jpeg2k.codeblocks_device", n)
+                stage.t1 = table
+            elif dests is not None:
                 batch.run_into(dests, num_threads)
                 if cp.rgn:
                     for c in range(C):
@@ -1279,8 +1364,9 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
                     decoded[c][(r, bi)][
                         cb.y0 - band.y0 : cb.y1 - band.y0,
                         cb.x0 - band.x0 : cb.x1 - band.x0] = blk
-            add_count("imgcodec.jpeg2k.codeblocks", len(batch))
-            charge_ns("imgcodec.jpeg2k.t1", batch.worker_cpu_ns)
+            if table is None:
+                add_count("imgcodec.jpeg2k.codeblocks", len(batch))
+                charge_ns("imgcodec.jpeg2k.t1", batch.worker_cpu_ns)
 
         if stage is not None:
             if not cp.reversible:

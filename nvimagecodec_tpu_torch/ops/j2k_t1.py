@@ -1,0 +1,222 @@
+"""J2K Tier-1 on the card: the code-block table and the kernel's wrapper.
+
+`BlockTable` describes the code-blocks of a tile, or of every tile of a
+uniform grid, instead of decoding them: a row of ROW int32 a block (the
+native batch decoder's meta row, then where its coefficients go). Each row
+is checked as it is added with the rules of the native decoder
+(native/j2k_t1.cpp), and `end_tile` raises that decoder's ValueError, so a
+malformed stream fails on the host before any launch and the kernel needs
+no error path. `staged` lays out the table, sorted longest segment first,
+and the codestream bytes in one buffer (pinned for a CUDA device) that goes
+up in one copy.
+
+`decode_codeblocks` decodes every row of a staged table into a zeroed flat
+int32 buffer. A CUDA buffer launches csrc/j2k_t1.cu (one warp a code-block)
+or raises; a CPU buffer takes the plain version, the native host decoder
+(`tic_t1_decode_batch_into`) on the same rows.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import struct
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..native import lib as _native_lib
+
+# int32 a row: segment offset in the data (bytes) and length, w, h,
+# band | style << 8, bit-planes, passes (the native decoder's meta row),
+# then the destination's row stride and its offset in the flat buffer
+# (elements, low and high 32 bits)
+ROW = 10
+# the most coefficients a code-block may have (T.800 A.6.1: xcb + ycb <= 12),
+# which the kernel keeps in shared memory
+MAX_BLOCK_AREA = 4096
+
+
+class Layout(NamedTuple):
+    """What the kernel needs to read a staged buffer: its rows, where the
+    data starts (bytes), and the most flag words and coefficients of any
+    row (its shared memory)."""
+    rows: int
+    data_start: int
+    flag_words: int
+    mag_words: int
+
+
+def _blob_ok(blob) -> bool:
+    """The native decoder's check of a TERMALL/BYPASS blob: [int32 count
+    (1..112)][int32 lengths][the segments], every length within what
+    follows."""
+    if len(blob) < 4:
+        return False
+    (ns,) = struct.unpack_from("<i", blob, 0)
+    if ns < 1 or ns > 112 or len(blob) < 4 + 4 * ns:
+        return False
+    remain = len(blob) - 4 - 4 * ns
+    for sl in struct.unpack_from(f"<{ns}i", blob, 4):
+        if sl < 0 or sl > remain:
+            return False
+        remain -= sl
+    return True
+
+
+class BlockTable:
+    """The code-blocks of one tile, or of the tiles of a uniform grid, as
+    rows for the device decoder (see the module's note)."""
+
+    def __init__(self):
+        self._parts: list = []  # tile data, and segments built in Python
+        self._size = 0
+        self._rows: list = []   # ROW - 1 ints a block (one destination)
+        self._bad: list = []    # rows the native decoder would refuse
+        self._first = 0         # the current tile's first row
+        self._tile = b""
+        self._base = 0
+
+    def __len__(self) -> int:
+        return len(self._rows) // (ROW - 1)
+
+    def _put(self, b) -> int:
+        off = self._size
+        self._parts.append(b)
+        self._size += len(b)
+        return off
+
+    def add_tile(self, tdata) -> None:
+        """Starts a tile: an (off, len) segment of the blocks added after
+        this is a range of `tdata`."""
+        self._first = len(self)
+        self._tile = tdata
+        self._base = self._put(tdata)
+
+    def add(self, seg, w: int, h: int, band: int, nbps: int, passes: int,
+            style: int, dest: int, stride: int) -> None:
+        """One code-block, as `t1_bridge.BlockBatch.add_t1` takes it, and
+        where its [h, w] coefficients go in the flat buffer: element `dest`,
+        rows `stride` apart."""
+        ok = (1 <= w <= 4096 and 1 <= h <= 4096 and 0 <= nbps <= 31
+              and passes >= 0 and stride >= w)
+        if type(seg) is tuple:
+            so, sl = seg
+            ok = ok and so >= 0 and sl >= 0 and so + sl <= len(self._tile)
+            off = self._base + so
+            blob = self._tile[so:so + sl] if style & 0x05 else None
+        else:
+            sl = len(seg)
+            off = self._put(seg)
+            blob = seg
+        if ok and style & 0x05:
+            ok = _blob_ok(blob)
+        if not ok:
+            self._bad.append(len(self))
+        self._rows += (off, sl, w, h, band | (style << 8), nbps, passes,
+                       stride, dest)
+
+    def rows(self) -> np.ndarray:
+        """[n, ROW - 1] int64, in the order added: a row's fields with the
+        destination's offset whole."""
+        return np.asarray(self._rows, np.int64).reshape(len(self), ROW - 1)
+
+    def end_tile(self) -> int:
+        """The tile's block count; raises the native decoder's ValueError
+        for its first block that decoder would refuse."""
+        n = len(self) - self._first
+        for i in self._bad:
+            if i >= self._first:
+                raise ValueError(f"J2K T1 block decode failed rc=1 "
+                                 f"(block {i - self._first} of {n})")
+        return n
+
+    def staged(self, alloc=None):
+        """(uint8 buffer, Layout): the table, longest segment first, then
+        the data, in a buffer of `alloc(nbytes)` (a CPU tensor by
+        default)."""
+        n = len(self)
+        a = self.rows()
+        a = a[np.argsort(-a[:, 1], kind="stable")]
+        t = np.empty((n, ROW), np.int32)
+        t[:, :ROW - 2] = a[:, :ROW - 2]
+        dest = a[:, ROW - 2]
+        t[:, ROW - 2] = (dest & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        t[:, ROW - 1] = dest >> 32
+        head = -(-t.nbytes // 16) * 16
+        nbytes = head + self._size
+        buf = (alloc(nbytes) if alloc is not None
+               else torch.empty(nbytes, dtype=torch.uint8))
+        v = buf.numpy()
+        v[:t.nbytes] = t.reshape(-1).view(np.uint8)
+        pos = head
+        for p in self._parts:
+            v[pos:pos + len(p)] = np.frombuffer(p, np.uint8)
+            pos += len(p)
+        w, h = a[:, 2], a[:, 3]
+        flags = int(((((h + 3) >> 2) + 2) * (w + 2)).max()) if n else 0
+        mags = int((w * h).max()) if n else 0
+        return buf, Layout(n, head, flags, mags)
+
+
+def decode_codeblocks_plain(buf: torch.Tensor, layout: Layout,
+                            out: torch.Tensor) -> None:
+    """The native host decoder on the rows of a staged CPU buffer, into
+    the CPU int32 buffer `out`."""
+    n = layout.rows
+    if n == 0:
+        return
+    v = buf.numpy()
+    t = v[:n * ROW * 4].view(np.int32).reshape(n, ROW)
+    meta = np.ascontiguousarray(t[:, :7])
+    strides = t[:, 7].astype(np.int64)
+    dest = (t[:, 8].view(np.uint32).astype(np.int64)
+            | (t[:, 9].astype(np.int64) << 32))
+    addrs = np.uint64(out.data_ptr()) + (dest * 4).astype(np.uint64)
+    rcs = np.zeros(n, np.int32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    rc = _native_lib().tic_t1_decode_batch_into(
+        n, ctypes.cast(buf.data_ptr() + layout.data_start, ctypes.c_char_p),
+        meta.ctypes.data_as(i32p),
+        addrs.ctypes.data_as(ctypes.POINTER(i32p)),
+        strides.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        rcs.ctypes.data_as(i32p), os.cpu_count() or 1, None)
+    if rc != 0:
+        i = int(np.nonzero(rcs)[0][0])
+        raise ValueError(f"J2K T1 block decode failed rc={rcs[i]} "
+                         f"(block {i} of {n})")
+
+
+def decode_codeblocks(buf: torch.Tensor, layout: Layout,
+                      out: torch.Tensor) -> None:
+    """Decodes every code-block of a staged buffer (`BlockTable.staged`,
+    uploaded) into `out`, a zeroed contiguous int32 flat buffer on the same
+    device. A CPU buffer takes the plain version; a CUDA buffer launches
+    csrc/j2k_t1.cu on the current stream, without synchronising, or
+    raises."""
+    if out.device.type == "cpu":
+        return decode_codeblocks_plain(buf, layout, out)
+    if out.device.type != "cuda":
+        raise ValueError(f"J2K Tier-1: unsupported device {out.device}")
+    if (buf.dtype != torch.uint8 or buf.device != out.device
+            or not buf.is_contiguous()):
+        raise ValueError("J2K Tier-1: the staged table must be contiguous "
+                         "uint8 on the output's device")
+    if out.dtype != torch.int32 or not out.is_contiguous():
+        raise ValueError("J2K Tier-1: the output must be contiguous int32")
+    if layout.mag_words > MAX_BLOCK_AREA:
+        raise ValueError(f"J2K Tier-1: a code-block of {layout.mag_words} "
+                         f"coefficients (at most {MAX_BLOCK_AREA})")
+    if layout.rows == 0:
+        return
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = _build.lib().tic_j2k_t1_decode_blocks(
+            buf.data_ptr(), layout.rows, buf.data_ptr() + layout.data_start,
+            out.data_ptr(), layout.flag_words, layout.mag_words, stream)
+    _build.check(rc, "J2K Tier-1 launch")
+    _build.count_launch(decode_codeblocks)
+
+
+decode_codeblocks.launches = 0

@@ -881,12 +881,16 @@ def test_j2k_mesh_on_one_card_is_bit_exact(cuda):
             assert got.is_cuda and np.array_equal(got.cpu().numpy(), img)
 
 
-def test_j2k_mesh_counts_the_bytes_each_device_copies(cuda):
+def test_j2k_mesh_counts_the_bytes_each_device_copies(cuda, monkeypatch):
     """imgcodec.jpeg2k.h2d_bytes on the sharded paths adds what each device
     copies from the host: its tiles, or its rows, which sum to the
-    unsharded upload; and where coarse levels run replicated (7 levels of
-    256 rows over sp=4), their subbands once a device on top."""
+    unsharded upload of the subbands (Tier-1 on the host: on the card the
+    unsharded decode uploads its code-block table and codestream instead);
+    and where coarse levels run replicated (7 levels of 256 rows over
+    sp=4), their subbands once a device on top."""
     from nvimagecodec_tpu_torch.core import trace
+
+    monkeypatch.setattr(j2k, "tier1_on_device", lambda *a: False)
 
     def h2d(data, mesh):
         trace.start_collect()

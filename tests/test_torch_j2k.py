@@ -795,15 +795,18 @@ def test_a_failure_after_the_idwt_is_a_device_stage_error(broken,
 
 def test_a_failed_pinned_allocation_is_a_device_stage_error(monkeypatch):
     """The upload buffer of a CUDA device is pinned through the CUDA
-    runtime inside the host stage: its failure is the device stage's."""
-    real = torch.zeros
+    runtime, in the host stage (the subbands) or in the upload (the
+    code-block table, where Tier-1 runs on the card): its failure is the
+    device stage's."""
+    def pinned_fails(real):
+        def make(*args, pin_memory=False, **kw):
+            if pin_memory:
+                raise RuntimeError("CUDA error: out of memory")
+            return real(*args, **kw)
+        return make
 
-    def zeros(*args, pin_memory=False, **kw):
-        if pin_memory:
-            raise RuntimeError("CUDA error: out of memory")
-        return real(*args, **kw)
-
-    monkeypatch.setattr(port_core.torch, "zeros", zeros)
+    monkeypatch.setattr(port_core.torch, "zeros", pinned_fails(torch.zeros))
+    monkeypatch.setattr(port_core.torch, "empty", pinned_fails(torch.empty))
     a = _jp2("reversible_j2k")
     with pytest.raises(port_core.J2kDeviceStageError, match="pinned.*out of"):
         port_core.decode_j2k(a, device=torch.device("cuda"))

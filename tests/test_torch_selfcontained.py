@@ -20,7 +20,7 @@ FILES = sorted(
      "tools/profile_torch_encode.py", "tools/bench_idct.py",
      "tools/bench_fdct.py",
      "tools/bench_entropy.py", "tools/fp32_peak.py",
-     "tools/profile_torch_j2k.py"]
+     "tools/profile_torch_j2k.py", "tests/test_torch_j2k_t1_device.py"]
 
 
 def _imported_roots(tree: ast.AST):

@@ -13,7 +13,9 @@ port's own encoder and prints:
   (`core/trace.py`; spans sum over the sample threads);
 - the device stage of one stream under `torch.profiler`: launches and device
   time by kernel name, device busy time against the stage's wall time;
-- the host stages of one stream alone (Tier-2 + Tier-1) against the number
+- the host stages of one stream alone: Tier-2 and the code-block table of
+  the device route (Tier-1 on the card), and Tier-2 + the host Tier-1 (the
+  route `core.tier1_on_device` keeps for other streams) against the number
   of Tier-1 threads.
 
 The card's `nvidia-smi` name and power limit come first, so that every
@@ -124,14 +126,26 @@ def main() -> int:
         print(f"  {e.self_device_time_total / 1e3:8.4f} ms  x{e.count:4d}  "
               f"{e.key[:90]}", flush=True)
 
-    # the host stages of one stream alone against the Tier-1 thread count
-    for nt in (1, 2, 4, 8):
-        t0 = time.perf_counter()
-        for _ in range(args.reps):
-            j2k._decode_host_stages(streams[0], nt, dev, 0, None, False)
-        ms = (time.perf_counter() - t0) / args.reps * 1e3
-        print(f"host stages (Tier-2 + Tier-1) of one stream, {nt} Tier-1 "
-              f"thread(s): {ms:.1f} ms", flush=True)
+    # the host stages of one stream alone: the device route's, then the
+    # host Tier-1's against its thread count
+    t0 = time.perf_counter()
+    for _ in range(args.reps):
+        j2k._decode_host_stages(streams[0], 0, dev, 0, None, False)
+    ms = (time.perf_counter() - t0) / args.reps * 1e3
+    print(f"host stages (Tier-2 + the code-block table) of one stream: "
+          f"{ms:.1f} ms", flush=True)
+    rule = j2k.tier1_on_device
+    j2k.tier1_on_device = lambda *a: False
+    try:
+        for nt in (1, 2, 4, 8):
+            t0 = time.perf_counter()
+            for _ in range(args.reps):
+                j2k._decode_host_stages(streams[0], nt, dev, 0, None, False)
+            ms = (time.perf_counter() - t0) / args.reps * 1e3
+            print(f"host stages (Tier-2 + host Tier-1) of one stream, {nt} "
+                  f"Tier-1 thread(s): {ms:.1f} ms", flush=True)
+    finally:
+        j2k.tier1_on_device = rule
     return 0
 
 
