@@ -93,60 +93,3 @@ def decode_coefficients_into(frame: JpegFrame, data: bytes, slots) -> None:
     )
     if rc != 0:
         raise ValueError(f"native JPEG entropy decode failed (rc={rc})")
-
-
-def decode_coefficients_packed_into(frame: JpegFrame, data: bytes,
-                                    lo_slots, hi_slots) -> int:
-    """Entropy-decode directly into preallocated packed-wire slots: per
-    component, lo [bh, bw, lo_len] uint8 (zigzag low bytes, possibly a
-    truncated lo_len < 64) + hi [bh, bw, 8] int8 (zigzag 0..7 high bytes).
-    No int16 intermediate. Returns 0 on success; 1 = a coefficient did not
-    fit the wire (int8 tail or truncation), -3 = progressive (both mean:
-    widen the wire). Raises on parse errors. GIL-released."""
-    L = lib()
-    ncomp = len(frame.components)
-    lo_bufs = (ctypes.POINTER(ctypes.c_uint8) * 4)()
-    hi_bufs = (ctypes.POINTER(ctypes.c_int8) * 4)()
-    lo_lens = (ctypes.c_int32 * 4)()
-    bw = (ctypes.c_int32 * 4)()
-    bh = (ctypes.c_int32 * 4)()
-    for c, (lo, hi) in enumerate(zip(lo_slots, hi_slots)):
-        assert lo.dtype == np.uint8 and lo.flags.c_contiguous
-        assert hi.dtype == np.int8 and hi.flags.c_contiguous
-        lo_bufs[c] = lo.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
-        hi_bufs[c] = hi.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
-        lo_lens[c] = lo.shape[2]
-        bh[c], bw[c] = lo.shape[0], lo.shape[1]
-    rc = L.tic_jpeg_decode_coefficients_packed(
-        data, len(data), lo_bufs, hi_bufs,
-        ctypes.cast(lo_lens, ctypes.POINTER(ctypes.c_int32)),
-        ctypes.cast(bw, ctypes.POINTER(ctypes.c_int32)),
-        ctypes.cast(bh, ctypes.POINTER(ctypes.c_int32)),
-        ncomp,
-    )
-    if rc in (0, 1, -3):
-        return rc
-    raise ValueError(f"native JPEG entropy decode failed (rc={rc})")
-
-
-def pack_coefficients_into(coef: np.ndarray, lo: np.ndarray,
-                           hi: np.ndarray) -> bool:
-    """Pack one component's natural-order [bh, bw, 64] int16 blocks into the
-    compact wire: lo [bh, bw, lo_len] uint8 (zigzag order, possibly
-    truncated) + hi [bh, bw, 8] int8 (high bytes of zigzag 0..7). This is
-    how progressive streams reach the packed wire (their refinement scans
-    need the int16 intermediate). Returns False if a tail coefficient does
-    not fit int8 or a truncated position is nonzero (caller widens the
-    wire). GIL-released."""
-    L = lib()
-    assert coef.dtype == np.int16 and coef.flags.c_contiguous
-    assert lo.dtype == np.uint8 and lo.flags.c_contiguous
-    assert hi.dtype == np.int8 and hi.flags.c_contiguous
-    nblocks = coef.shape[0] * coef.shape[1]
-    rc = L.tic_jpeg_pack_coefficients(
-        coef.ctypes.data_as(c_i16p), nblocks,
-        lo.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        lo.shape[2],
-        hi.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-    )
-    return rc == 0

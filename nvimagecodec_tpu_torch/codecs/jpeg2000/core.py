@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import functools
 import math
 import os
 import struct
@@ -54,20 +56,24 @@ from .codestream import (
     ceil_div,
     iter_tile_parts,
     parse_main_header,
+    parse_poc_body,
     precinct_count,
     precinct_rect,
     progression_iter,
     unwrap_jp2,
     wrap_jp2,
+    write_coc,
     write_cod,
+    write_qcc,
     write_qcd,
     write_siz,
 )
 from .codestream import write_cap
 from .codestream import RGN
 from .codestream import _seg as _marker_seg
-from .t1_bridge import (BlockBatch, EncodeBatch, ht_decode, ht_encode,
-                        idwt53, t1_decode, t1_encode)
+from ...native import lib as _native_lib
+from .t1_bridge import (BlockBatch, EncodeBatch, fdwt53, ht_decode,
+                        ht_encode, idwt53, t1_decode, t1_encode)
 from .t2 import (PacketDecoder, PacketEncoder, plan_layers, plan_layers_ht,
                  plan_layers_seg, seg_pass_groups)
 
@@ -359,11 +365,10 @@ def encode_j2k(
         guard_bits=2,
     )
 
-    import dataclasses as _dc
-
     for c, spec in (per_comp or {}).items():
-        o = _dc.replace(cp, precincts=list(precincts) if precincts else None,
-                        band_q=[], comp_overrides={})
+        o = dataclasses.replace(
+            cp, precincts=list(precincts) if precincts else None, band_q=[],
+            comp_overrides={})
         if "cblk" in spec:
             o.cblk_w, o.cblk_h = spec["cblk"]
         cp.comp_overrides[int(c)] = o
@@ -440,8 +445,6 @@ def encode_j2k(
             if reversible:
                 # native forward 5/3 (native/j2k_idwt.cpp tic_fdwt53),
                 # bit-identical to dwt_ops.dwt2d
-                from .t1_bridge import fdwt53
-
                 LL, bands_f = fdwt53(
                     np.ascontiguousarray(planes[c], np.int32), levels,
                     corigin)
@@ -639,8 +642,6 @@ def encode_j2k(
     if cp.rgn:
         for c_, s_ in sorted(cp.rgn.items()):
             out += _marker_seg(RGN, bytes([c_, 0, s_]))
-    from .codestream import write_coc, write_qcc
-
     for c, spec in (per_comp or {}).items():
         o = cp.comp_overrides[int(c)]
         if "cblk" in spec:
@@ -756,26 +757,26 @@ class _SubbandStage:
     flat buffer that the pixel stage reads.
 
     `lead` is (C,) or (T, C); leaf i is the [*lead, h, w] stack of one
-    subband: LL first, then (HL, LH, HH) per level, finest first. With
-    `host`, the buffer is on the host (pinned for a CUDA device) and goes up
-    in one copy: the T1 decoder writes int32 blocks straight into the
-    leaves' views; float leaves are filled by an assignment that casts, so
-    the buffer is written once and never repacked. Without, Tier-1 runs on
-    the device: `t1` holds the code-block table (ops/j2k_t1.py), which goes
-    up with the codestream instead, and the buffer is made zeroed on the
-    device and decoded into there."""
+    subband: LL first, then (HL, LH, HH) per level, finest first. Without
+    `t1`, the buffer is on the host (pinned for a CUDA device) and goes up
+    in one copy: the host Tier-1 writes int32 blocks straight into the
+    leaves' views, and dequantised float leaves by an assignment that
+    casts, so the buffer is written once and never repacked. With `t1`,
+    the code-block table (ops/j2k_t1.py) of the card's Tier-1, the table
+    goes up with the codestream instead, and the buffer is made zeroed on
+    the device and decoded into there."""
 
     def __init__(self, lead, band_dims, dtype: torch.dtype, device,
-                 host: bool = True):
+                 t1: Optional[j2k_t1.BlockTable] = None):
         self.lead = tuple(lead)
         self.shapes = [self.lead + tuple(d) for d in band_dims]
         sizes = [math.prod(sh) for sh in self.shapes]
         self.offs = [0]
         for n in sizes:
             self.offs.append(self.offs[-1] + n)
-        self.t1 = None  # the j2k_t1.BlockTable without `host`
+        self.t1 = t1
         self.flat = self.leaves = None
-        if host:
+        if t1 is None:
             self.flat = _upload_buffer(self.offs[-1], dtype, device)
             flat_np = self.flat.numpy()
             self.leaves = [flat_np[self.offs[i]:self.offs[i + 1]].reshape(sh)
@@ -1042,37 +1043,67 @@ def decode_j2k(
     return res
 
 
-def _decode_host_stages(data: bytes, num_threads: int, device,
-                        discard_levels: int, region, planar: bool,
-                        mesh=None):
-    """Tier-2 and Tier-1 of every tile, then either the host pixel stage
-    (the image as numpy) or, where `device` is named and the stream allows
-    it, a _DeviceJob: the filled upload buffer, or, where Tier-1 runs on
-    the device (`tier1_on_device`), the staged code-block table."""
-    cs = unwrap_jp2(bytes(data))
-    add_count("imgcodec.jpeg2k.stream_bytes", len(cs))
+
+
+# ----------------------------------------------------- the plan of a stream
+def _expand_derived(q: CodingParams) -> None:
+    """Scalar derived quantisation (one QCD step): expanded to a step a
+    band, eps decreasing with the level."""
+    if q.qcd_style == 1 and len(q.band_q) == 1:
+        eps0, mu0 = q.band_q[0]
+        q.band_q = []
+        for (r, bi) in _band_order(q):
+            lev = q.levels if r == 0 else q.levels - r + 1
+            q.band_q.append((eps0 - q.levels + lev, mu0))
+
+
+class StreamPlan(NamedTuple):
+    """What the main header decides for a whole stream (`plan_stream`);
+    nothing after it asks these questions again."""
+    pos: int  # the first tile-part
+    siz: SizInfo
+    cp: CodingParams
+    ccs: List[CodingParams]  # a component's own (COC/QCC) parameters
+    sub: List[Tuple[int, int]]  # (XRsiz, YRsiz) a component
+    subsampled: bool
+    signed: bool
+    reversible: bool  # every component 5/3
+    depth: int
+    dtype: type  # of the samples out
+    discard: int  # the finest resolutions not reconstructed
+    out_shape: Tuple[int, int]  # (H, W) at the decoded resolution
+    roi: Optional[Tuple[int, int, int, int]]  # (y0, x0, y1, x1), decoded alone
+    post_crop: Optional[Tuple[int, int, int, int]]  # cut from a full decode
+    device: Optional[torch.device]
+    pixels: str  # "host", "device_tile" or "device_grid"
+    tier1: str  # "card_table", "native_into" or "native_blocks"
+
+
+def plan_stream(cs: bytes, device, discard_levels: int = 0, region=None,
+                mesh=None) -> StreamPlan:
+    """Reads the main header of the codestream `cs` and decides, once:
+
+    - the pixel route: with `device` named, "device_tile" for one tile and
+      "device_grid" for a uniform tile grid (no offsets, the image a whole
+      number of tiles, tile sides multiples of 2^levels, so every tile has
+      the same subband geometry), unless the stream has COC/QCC overrides,
+      subsampling or signed samples, or the call a discard or a region;
+      "host" otherwise;
+    - the Tier-1 site: "card_table" where the device route takes the stream
+      and `tier1_on_device` holds; else "native_into" (the native decoder
+      writes into the subband planes) where every component is 5/3, and
+      "native_blocks" (decoded planes then RGN-unshifted and dequantised)
+      otherwise.
+
+    Arbitrary (incl. odd) image and tile offsets and odd tile sizes are
+    decoded: the DWT lifts take per-level parity from the absolute
+    tile-component origin (ops/dwt.py; T.800 F.3.4's 1D_SR on [i0, i1))."""
     siz, cp, pos = parse_main_header(cs, 0)
     if len(set(siz.depth)) > 1 or len(set(siz.signed)) > 1:
         raise ValueError("J2K: mixed component depth/signedness not supported")
-    sub = list(zip(siz.sub_x, siz.sub_y))
-    subsampled = any(s != (1, 1) for s in sub)
-    signed = bool(siz.signed and siz.signed[0])
-    # arbitrary (incl. odd) XOsiz/YOsiz/XTOsiz/YTOsiz and odd tile sizes
-    # are handled: the DWT lifts take per-level parity from the absolute
-    # tile-component origin (ops/dwt.py; T.800 F.3.4's 1D_SR on [i0, i1))
-    def _expand_derived(q):
-        # scalar derived: expand to per-band (eps decreases with level)
-        if q.qcd_style == 1 and len(q.band_q) == 1:
-            eps0, mu0 = q.band_q[0]
-            q.band_q = []
-            for (r, bi) in _band_order(q):
-                lev = q.levels if r == 0 else q.levels - r + 1
-                q.band_q.append((eps0 - q.levels + lev, mu0))
-
     _expand_derived(cp)
-    for _o in cp.comp_overrides.values():
-        _expand_derived(_o)
-
+    for o in cp.comp_overrides.values():
+        _expand_derived(o)
     C = siz.ncomp
     ccs = [cp.for_comp(c) for c in range(C)]
     uniform_cp = not cp.comp_overrides or all(
@@ -1082,33 +1113,27 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
     if discard_levels and not uniform_cp:
         raise ValueError(
             "J2K: discard_levels with per-component COC not supported")
+    sub = list(zip(siz.sub_x, siz.sub_y))
+    subsampled = any(s != (1, 1) for s in sub)
+    signed = bool(siz.signed and siz.signed[0])
     depth = siz.depth[0]
     if signed:
         dtype = np.int16 if depth > 8 else np.int8
     else:
         dtype = np.uint16 if depth > 8 else np.uint8
-    discard_levels = max(0, min(discard_levels, cp.levels))
-    keep_levels = cp.levels - discard_levels
-    d = 1 << discard_levels
-    out_h = ceil_div(siz.height, d) - ceil_div(siz.y0, d)
-    out_w = ceil_div(siz.width, d) - ceil_div(siz.x0, d)
-    # per-component reduced-grid divisors and output dims (component domain
-    # ceil(v/dx) reduced by 2^discard: ceil-div composes to one divisor)
-    fx = [sub[c][0] * d for c in range(C)]
-    fy = [sub[c][1] * d for c in range(C)]
-    co_h = [ceil_div(siz.height, fy[c]) - ceil_div(siz.y0, fy[c])
-            for c in range(C)]
-    co_w = [ceil_div(siz.width, fx[c]) - ceil_div(siz.x0, fx[c])
-            for c in range(C)]
-
+    discard = max(0, min(discard_levels, cp.levels))
+    d = 1 << discard
+    out_shape = (ceil_div(siz.height, d) - ceil_div(siz.y0, d),
+                 ceil_div(siz.width, d) - ceil_div(siz.x0, d))
     # ROI: absolute codestream coordinates of the requested region
     roi = post_crop = None
-    if region is not None and discard_levels == 0:
+    if region is not None and discard == 0:
         ay0 = siz.y0 + int(region.start_y)
         ax0 = siz.x0 + int(region.start_x)
         ay1 = siz.y0 + int(region.end_y)
         ax1 = siz.x0 + int(region.end_x)
-        if siz.y0 <= ay0 < ay1 <= siz.height and siz.x0 <= ax0 < ax1 <= siz.width:
+        if (siz.y0 <= ay0 < ay1 <= siz.height
+                and siz.x0 <= ax0 < ax1 <= siz.width):
             if subsampled:
                 # component grids disagree with the region's full-grid
                 # coordinates: decode full, crop the interleaved output
@@ -1116,403 +1141,501 @@ def _decode_host_stages(data: bytes, num_threads: int, device,
                              ay1 - siz.y0, ax1 - siz.x0)
             else:
                 roi = (ay0, ax0, ay1, ax1)
-    if subsampled:
-        plane_out = [np.zeros((co_h[c], co_w[c]), dtype) for c in range(C)]
-        out = None
-    else:
-        out = np.zeros(
-            (roi[2] - roi[0], roi[3] - roi[1], C) if roi else (out_h, out_w, C),
-            dtype,
-        )
-
-    border = _band_order(cp)
-
-    ntiles_total = siz.tiles_x * siz.tiles_y
-    # what the device stage takes at all; then one tile or a uniform grid
-    device_ok = (
-        device is not None
-        and not cp.comp_overrides
-        and not subsampled and not signed
-        and discard_levels == 0
-        and roi is None
-    )
-    single_tile = device_ok and ntiles_total == 1
-    uniform_grid = (
-        device_ok
-        and ntiles_total > 1
-        and siz.x0 == 0 and siz.y0 == 0 and siz.tx0 == 0 and siz.ty0 == 0
-        and siz.width % siz.tile_w == 0
-        and siz.height % siz.tile_h == 0
-        and siz.tile_w % (1 << cp.levels) == 0
-        and siz.tile_h % (1 << cp.levels) == 0
-    )
-    # the one buffer the subbands are decoded into (made at the first
-    # tile, whose geometry every tile of a uniform grid shares), and, where
-    # Tier-1 runs on the device, the table of every tile's code-blocks
-    stage = None
-    stage_dtype = torch.int32 if cp.reversible else torch.float32
-    table = None
-    if (single_tile or uniform_grid) and tier1_on_device(
-            device, all(cc.reversible for cc in ccs),
-            any(cc.cblk_style & 0x40 for cc in ccs),
+    pixels = "host"
+    if (device is not None and not cp.comp_overrides and not subsampled
+            and not signed and discard == 0 and roi is None):
+        if siz.tiles_x * siz.tiles_y == 1:
+            pixels = "device_tile"
+        elif (siz.x0 == 0 and siz.y0 == 0 and siz.tx0 == 0 and siz.ty0 == 0
+              and siz.width % siz.tile_w == 0
+              and siz.height % siz.tile_h == 0
+              and siz.tile_w % (1 << cp.levels) == 0
+              and siz.tile_h % (1 << cp.levels) == 0):
+            pixels = "device_grid"
+    reversible = all(cc.reversible for cc in ccs)
+    if pixels != "host" and tier1_on_device(
+            device, reversible, any(cc.cblk_style & 0x40 for cc in ccs),
             any((cp.rgn or {}).values()), mesh is not None,
             cp.cblk_w * cp.cblk_h):
-        table = j2k_t1.BlockTable()
-    tiles_seen = set()
+        tier1 = "card_table"
+    else:
+        tier1 = "native_into" if reversible else "native_blocks"
+    return StreamPlan(pos, siz, cp, ccs, sub, subsampled, signed,
+                      reversible, depth, dtype, discard, out_shape, roi,
+                      post_crop, device, pixels, tier1)
 
-    for tidx, tdata, ppt, tpoc in iter_tile_parts(cs, pos, ppm=cp.ppm):
-        tcp = cp
-        if tpoc is not None:
-            # tile-part POC overrides the main-header POC for this tile
-            # (T.800 A.6.6; openjpeg writes POC in the first tile-part)
-            import dataclasses as _dc
 
-            from .codestream import parse_poc_body
+class _Tile(NamedTuple):
+    """One tile at the decoded resolution."""
+    index: int
+    cp: CodingParams  # its tile-part POC overrides the main header's
+    rect: Tuple[int, int, int, int]  # (x0, y0, x1, y1), reference grid
+    reduced: Tuple[int, int, int, int]  # the rect divided by 2^discard
+    comp_rects: List[Tuple[int, int, int, int]]  # a component's (T.800 B.3)
+    comp_dims: List[Tuple[int, int]]  # a component's (h, w), decoded
+    resolutions: Dict[int, list]
 
-            tcp = _dc.replace(cp, poc=parse_poc_body(tpoc, siz.ncomp))
-        tx0, ty0, tx1, ty1 = siz.tile_rect(tidx)
-        if roi is not None and (
-            tx1 <= roi[1] or tx0 >= roi[3] or ty1 <= roi[0] or ty0 >= roi[2]
-        ):
-            continue  # tile cannot touch the region: zero work
-        # reduced-resolution tile rect (coordinates divide by 2^d)
-        rx0, ry0 = ceil_div(tx0, d), ceil_div(ty0, d)
-        rx1, ry1 = ceil_div(tx1, d), ceil_div(ty1, d)
-        th, tw = ry1 - ry0, rx1 - rx0
-        # per-component tile rects in component coordinates (T.800 B.3)
-        tcr = [(ceil_div(tx0, sub[c][0]), ceil_div(ty0, sub[c][1]),
-                ceil_div(tx1, sub[c][0]), ceil_div(ty1, sub[c][1]))
-               for c in range(C)]
-        tdims = [(ceil_div(tcr[c][3], d) - ceil_div(tcr[c][1], d),
-                  ceil_div(tcr[c][2], d) - ceil_div(tcr[c][0], d))
-                 for c in range(C)]
-        resolutions = {c: build_resolutions(tcr[c][0], tcr[c][1],
-                                            tcr[c][2], tcr[c][3],
-                                            ccs[c].levels)
-                       for c in range(C)}
-        # Tier-2: packet headers, and each code-block's segments
-        with span("imgcodec.jpeg2k.t2"):
-            pdec = PacketDecoder(siz, cp, resolutions)
-            if ppt is not None:
-                import ctypes as _ct
 
-                br = HeaderBitReader(ppt, 0)   # packed packet headers
-                body_pos = _ct.c_int64(0)
-                for l, r, c, p in progression_iter(tcp, resolutions, C, tx0,
-                                                   ty0, sub=sub):
-                    if br.pos > len(ppt):
-                        raise ValueError("J2K: PPT headers exhausted")
-                    pdec.read_packet(br, c, r, l, p, body=tdata,
-                                     body_pos=body_pos)
-            else:
-                br = HeaderBitReader(tdata, 0)
-                for l, r, c, p in progression_iter(tcp, resolutions, C, tx0,
-                                                   ty0, sub=sub):
-                    if br.pos > len(tdata):
-                        raise ValueError("J2K: tile data exhausted mid-packet")
-                    pdec.read_packet(br, c, r, l, p)
+def _tile(plan: StreamPlan, tidx: int, tpoc) -> Optional[_Tile]:
+    """The tile's geometry; None where a region leaves it out (no work)."""
+    # a tile-part POC overrides the main-header POC for this tile (T.800
+    # A.6.6; openjpeg writes POC in the first tile-part)
+    tcp = plan.cp if tpoc is None else dataclasses.replace(
+        plan.cp, poc=parse_poc_body(tpoc, plan.siz.ncomp))
+    tx0, ty0, tx1, ty1 = plan.siz.tile_rect(tidx)
+    roi = plan.roi
+    if roi is not None and (
+        tx1 <= roi[1] or tx0 >= roi[3] or ty1 <= roi[0] or ty0 >= roi[2]
+    ):
+        return None
+    d = 1 << plan.discard
+    tcr = [(ceil_div(tx0, sx), ceil_div(ty0, sy), ceil_div(tx1, sx),
+            ceil_div(ty1, sy)) for sx, sy in plan.sub]
+    dims = [(ceil_div(y1, d) - ceil_div(y0, d),
+             ceil_div(x1, d) - ceil_div(x0, d)) for x0, y0, x1, y1 in tcr]
+    res = {c: build_resolutions(*tcr[c], cc.levels)
+           for c, cc in enumerate(plan.ccs)}
+    return _Tile(tidx, tcp, (tx0, ty0, tx1, ty1),
+                 tuple(ceil_div(v, d) for v in (tx0, ty0, tx1, ty1)), tcr,
+                 dims, res)
 
-        if (single_tile or uniform_grid) and stage is None:
-            band_dims = [None] * len(border)
-            for (r, bi) in border:
-                band = resolutions[0][r].bands[bi]
-                band_dims[_SubbandStage.leaf_index(cp.levels, r, bi)] = (
-                    band.h, band.w)
-            stage = _SubbandStage(
-                (ntiles_total, C) if uniform_grid else (C,), band_dims,
-                stage_dtype, device, host=table is None)
-        # Tier-1: every code-block of the tile in one native batch
-        with span("imgcodec.jpeg2k.t1"):
-            planes = []
-            if table is None:
-                batch = BlockBatch(base=tdata)
-            else:
-                table.add_tile(tdata)
-            borders = [_band_order(ccs[c]) for c in range(C)]
-            kepts = [[(r, bi) for (r, bi) in borders[c]
-                      if r <= ccs[c].levels - discard_levels]
-                     for c in range(C)]
-            # all-reversible tiles decode DIRECTLY into the int32 band arrays
-            # (native strided writes, no per-block Python consume loop)
-            all_rev = all(ccs[c].reversible for c in range(C))
-            decoded: Dict[int, Dict[Tuple[int, int], np.ndarray]] = {
-                c: {} for c in range(C)
-            }
-            for c in range(C):
-                for (r, bi) in kepts[c]:
-                    band = resolutions[c][r].bands[bi]
-                    if table is not None:
-                        continue  # decoded on the device
-                    if stage is not None and cp.reversible:
-                        # T1 decodes straight into the upload buffer
-                        leaf = stage.leaves[
-                            _SubbandStage.leaf_index(cp.levels, r, bi)]
-                        decoded[c][(r, bi)] = (leaf[tidx, c] if uniform_grid
-                                               else leaf[c])
-                        continue
-                    fdtype = np.int32 if ccs[c].reversible else np.float64
-                    decoded[c][(r, bi)] = np.zeros((band.h, band.w), fdtype)
-            dests = [] if all_rev and table is None else None
-            for c in range(C):
-                cc = ccs[c]
-                border_c = borders[c]
-                for (r, bi) in kepts[c]:
-                    band = resolutions[c][r].bands[bi]
-                    eps, mu = cc.band_q[border_c.index((r, bi))]
-                    mb = (eps + cc.guard_bits - 1
-                          + (cp.rgn.get(c, 0) if cp.rgn else 0))
-                    if table is not None:  # the plane in the flat buffer
-                        plane = stage.plane_offset(
-                            _SubbandStage.leaf_index(cp.levels, r, bi),
-                            (tidx, c) if uniform_grid else (c,))
-                    need = (
-                        _roi_needed_rect(r, cp.levels, *roi) if roi is not None
-                        else None
-                    )
-                    for cb in pdec.band_cblks(c, r, bi):
-                        if not cb.included or cb.num_passes == 0:
-                            continue
-                        if need is not None and (
-                            cb.y1 <= need[0] or cb.x1 <= need[1]
-                            or cb.y0 >= need[2] or cb.x0 >= need[3]
-                        ):
-                            continue  # outside the region's DWT support
-                        if cc.cblk_style & 0x40:  # HT (T.814) block coder
-                            # segments are (off, len) ranges into tdata
-                            # (zero-copy) or bytes; pass ranges through
-                            segs_ = cb.segments
-                            cup = segs_[0] if segs_ else b""
-                            if len(segs_) <= 1:
-                                ref = b""
-                            elif len(segs_) == 2:
-                                ref = segs_[1]
-                            else:
-                                ref = b"".join(_seg_bytes(tdata, x)
-                                               for x in segs_[1:])
-                            batch.add_ht((c, r, bi, cb), cup, ref,
-                                         cb.num_passes, cb.x1 - cb.x0,
-                                         cb.y1 - cb.y0, mb - cb.zero_bps,
-                                         cb.zero_bps + 1)
-                        else:
-                            sty = cc.cblk_style & 0x2F
-                            if sty & 0x05:
-                                # multi-segment blob the native decoder
-                                # parses: [i32 nsegs][i32 lens...][data]
-                                import struct as _st
 
-                                segs = [_seg_bytes(tdata, x)
-                                        for x in cb.segments] or [b""]
-                                seg = (_st.pack(
-                                    f"<{1 + len(segs)}i", len(segs),
-                                    *[len(x) for x in segs])
-                                    + b"".join(segs))
-                            elif len(cb.segments) == 1:
-                                seg = cb.segments[0]
-                            else:
-                                seg = b"".join(_seg_bytes(tdata, x)
-                                               for x in cb.segments)
-                            nbps = max(0, mb - cb.zero_bps)
-                            if table is not None:
-                                table.add(seg, cb.x1 - cb.x0, cb.y1 - cb.y0,
-                                          band.btype, nbps, cb.num_passes,
-                                          sty, plane + (cb.y0 - band.y0)
-                                          * band.w + cb.x0 - band.x0,
-                                          band.w)
-                                continue
-                            batch.add_t1((c, r, bi, cb), seg,
-                                         cb.x1 - cb.x0, cb.y1 - cb.y0,
-                                         band.btype, nbps, cb.num_passes,
-                                         style=sty)
-                        if dests is not None:
-                            dests.append((decoded[c][(r, bi)],
-                                          cb.y0 - band.y0, cb.x0 - band.x0))
-            def _rgn_unshift(a, s_):
-                # maxshift decode (T.800 H.2): coefficients whose magnitude
-                # reaches the shifted planes are ROI; scale them back down
-                mag = np.abs(a)
-                hi = mag >= (1 << s_)
-                return np.where(hi, np.sign(a) * (mag >> s_), a)
+def _leaf(plan: StreamPlan, tile: _Tile, c: int, r: int, bi: int):
+    """(leaf, lead index) of component c's subband (r, bi) of the tile in
+    the stage's buffer."""
+    return (_SubbandStage.leaf_index(plan.cp.levels, r, bi),
+            (tile.index, c) if plan.pixels == "device_grid" else (c,))
 
-            if table is not None:
-                n = table.end_tile()
-                add_count("imgcodec.jpeg2k.codeblocks", n)
-                # sent to the card's Tier-1 (tier1_on_device: CUDA only)
-                add_count("imgcodec.jpeg2k.codeblocks_device", n)
-                stage.t1 = table
-            elif dests is not None:
-                batch.run_into(dests, num_threads)
-                if cp.rgn:
-                    for c in range(C):
-                        s_ = cp.rgn.get(c, 0)
-                        if not s_:
-                            continue
-                        for (r, bi) in kepts[c]:
-                            a = decoded[c][(r, bi)]
-                            a[...] = _rgn_unshift(a, s_)
-            else:
-                for (c, r, bi, cb), blk in batch.run(num_threads):
-                    band = resolutions[c][r].bands[bi]
-                    if cp.rgn and cp.rgn.get(c, 0):
-                        blk = _rgn_unshift(blk, cp.rgn[c]).astype(np.int32)
-                    if not ccs[c].reversible:
-                        eps, mu = ccs[c].band_q[borders[c].index((r, bi))]
-                        rb = depth + band.gain
-                        delta = _eps_mu_to_delta(eps, mu, rb)
-                        mag = np.abs(blk).astype(np.float64)
-                        rec = np.where(mag > 0, (mag + 0.5) * delta, 0.0)
-                        blk = np.sign(blk) * rec
-                    decoded[c][(r, bi)][
-                        cb.y0 - band.y0 : cb.y1 - band.y0,
-                        cb.x0 - band.x0 : cb.x1 - band.x0] = blk
-            if table is None:
-                add_count("imgcodec.jpeg2k.codeblocks", len(batch))
-                charge_ns("imgcodec.jpeg2k.t1", batch.worker_cpu_ns)
 
-        if stage is not None:
-            if not cp.reversible:
-                # the float64 dequantised bands go into the float32 upload
-                # buffer by one casting assignment each
-                for c in range(C):
-                    for (r, bi) in border:
-                        leaf = stage.leaves[
-                            _SubbandStage.leaf_index(cp.levels, r, bi)]
-                        (leaf[tidx, c] if uniform_grid else leaf[c])[...] = (
-                            decoded[c][(r, bi)])
-            if uniform_grid:
-                tiles_seen.add(tidx)
+def _subband_stage(plan: StreamPlan, tile: _Tile) -> _SubbandStage:
+    """The device route's buffer, made at the first tile, whose geometry
+    every tile of a uniform grid shares; with the card's Tier-1, its
+    code-block table."""
+    cp = plan.cp
+    dims = [None] * (1 + 3 * cp.levels)
+    for (r, bi) in _band_order(cp):
+        band = tile.resolutions[0][r].bands[bi]
+        dims[_SubbandStage.leaf_index(cp.levels, r, bi)] = (band.h, band.w)
+    siz = plan.siz
+    lead = ((siz.tiles_x * siz.tiles_y, siz.ncomp)
+            if plan.pixels == "device_grid" else (siz.ncomp,))
+    return _SubbandStage(
+        lead, dims, torch.int32 if cp.reversible else torch.float32,
+        plan.device,
+        j2k_t1.BlockTable() if plan.tier1 == "card_table" else None)
+
+
+# -------------------------------------------------------- Tier-2 to Tier-1
+def _tier2(plan: StreamPlan, tile: _Tile, tdata: bytes, ppt) -> PacketDecoder:
+    """The tile's packet headers in progression order, from the tile data
+    or, with PPT/PPM, from the packed headers: each code-block's passes and
+    codeword segments."""
+    pdec = PacketDecoder(plan.siz, plan.cp, tile.resolutions)
+    packets = progression_iter(tile.cp, tile.resolutions, plan.siz.ncomp,
+                               tile.rect[0], tile.rect[1], sub=plan.sub)
+    if ppt is not None:
+        br = HeaderBitReader(ppt, 0)
+        body_pos = ctypes.c_int64(0)
+        for l, r, c, p in packets:
+            if br.pos > len(ppt):
+                raise ValueError("J2K: PPT headers exhausted")
+            pdec.read_packet(br, c, r, l, p, body=tdata, body_pos=body_pos)
+    else:
+        br = HeaderBitReader(tdata, 0)
+        for l, r, c, p in packets:
+            if br.pos > len(tdata):
+                raise ValueError("J2K: tile data exhausted mid-packet")
+            pdec.read_packet(br, c, r, l, p)
+    return pdec
+
+
+def _tile_codeblocks(plan: StreamPlan, tile: _Tile, pdec: PacketDecoder,
+                     tdata: bytes):
+    """Every band of the tile that Tier-1 decodes (QCD order a component,
+    the finest `discard` resolutions left out), as (c, r, bi, band, blocks):
+    `blocks` yields its code-blocks with their segments prepared
+    (`_band_blocks`)."""
+    rgn = plan.cp.rgn or {}
+    for c, cc in enumerate(plan.ccs):
+        for i, (r, bi) in enumerate(_band_order(cc)):
+            if r > cc.levels - plan.discard:
                 continue
-            # one tile: every component's subbands stacked, one upload,
-            # IDWT + MCT + shift on the device; the image stays there
-            return _DeviceJob(stage, device, cp, C, depth, (th, tw),
-                              (tcr[0][1], tcr[0][0]))  # origin (tcy0, tcx0)
+            band = tile.resolutions[c][r].bands[bi]
+            eps, _mu = cc.band_q[i]
+            need = (_roi_needed_rect(r, plan.cp.levels, *plan.roi)
+                    if plan.roi is not None else None)
+            yield c, r, bi, band, _band_blocks(
+                pdec.band_cblks(c, r, bi), band,
+                eps + cc.guard_bits - 1 + rgn.get(c, 0), cc.cblk_style,
+                need, tdata)
 
-        def _one_plane(c):
-            cc = ccs[c]
-            LL = decoded[c][(0, 0)]
-            bands_f = []
-            # with discard, the finest `discard_levels` decomposition levels
-            # are dropped: lev runs over the COARSEST keep_levels ones
-            for lev in range(discard_levels + 1, cc.levels + 1):
-                r = cc.levels - lev + 1
-                bands_f.append((decoded[c][(r, 0)], decoded[c][(r, 1)],
-                                decoded[c][(r, 2)]))
-            corigin = (ceil_div(tcr[c][1], d), ceil_div(tcr[c][0], d))
-            if cc.reversible:
-                # native multi-level 5/3 synthesis (bit-identical fast path)
-                return idwt53(LL, bands_f, tdims[c], corigin)
-            return _host_idwt2d(LL, bands_f, tdims[c], False, corigin)
 
-        if all_rev and C > 1 and num_threads != 1:
-            # the native IDWT releases the GIL: run components in parallel
-            # on a PERSISTENT pool (no thread start/join churn per tile)
-            planes = list(_plane_pool().map(_one_plane, range(C)))
+def _band_blocks(cblks, band: Band, mb: int, style: int, need, tdata):
+    """The band's code-blocks with a pass (and, with a region, within its
+    DWT support `need`), as the native decoders take them, at row y, column
+    x of the band. An HT (T.814) block is (cup, ref, passes, w, h, B, Ucap,
+    y, x): its cleanup segment and its refinement segments joined. A part-1
+    block is (seg, w, h, band type, bit-planes, passes, style, y, x): its
+    one segment, its segments joined, or, with TERMALL/BYPASS, the blob the
+    native decoder parses, [i32 count][i32 lengths][the segments]. A
+    segment is an (off, len) range of the tile data (zero-copy) or bytes."""
+    ht = style & 0x40
+    style &= 0x2F
+    for cb in cblks:
+        if not cb.included or cb.num_passes == 0:
+            continue
+        if need is not None and (
+            cb.y1 <= need[0] or cb.x1 <= need[1]
+            or cb.y0 >= need[2] or cb.x0 >= need[3]
+        ):
+            continue
+        segs = cb.segments
+        if ht:
+            if len(segs) <= 2:
+                ref = segs[1] if len(segs) == 2 else b""
+            else:
+                ref = b"".join(_seg_bytes(tdata, x) for x in segs[1:])
+            yield (segs[0] if segs else b"", ref, cb.num_passes,
+                   cb.x1 - cb.x0, cb.y1 - cb.y0, mb - cb.zero_bps,
+                   cb.zero_bps + 1, cb.y0 - band.y0, cb.x0 - band.x0)
+            continue
+        if style & 0x05:
+            parts = [_seg_bytes(tdata, x) for x in segs] or [b""]
+            seg = (struct.pack(f"<{1 + len(parts)}i", len(parts),
+                               *[len(x) for x in parts]) + b"".join(parts))
+        elif len(segs) == 1:
+            seg = segs[0]
         else:
-            planes = [_one_plane(c) for c in range(C)]
+            seg = b"".join(_seg_bytes(tdata, x) for x in segs)
+        yield (seg, cb.x1 - cb.x0, cb.y1 - cb.y0, band.btype,
+               max(0, mb - cb.zero_bps), cb.num_passes, style,
+               cb.y0 - band.y0, cb.x0 - band.x0)
 
-        # fused native epilogue (inverse RCT/shift + clamp + interleave in
-        # one sweep) for the plain u8 reversible case
-        if (all_rev and not subsampled and not signed and depth == 8
-                and roi is None):
-            from ...native import lib as _native_lib
 
-            L = _native_lib()
-            i32p = ctypes.POINTER(ctypes.c_int32)
-            u8p = ctypes.POINTER(ctypes.c_uint8)
+# ------------------------------------------------------------ Tier-1 sinks
+# A sink takes one tile's code-blocks: `band(c, r, bi, band)` gives the
+# band's destination, `add(block, dest)` takes a block of it, and `finish()`
+# decodes (or, on the card, checks) them and returns (blocks, CPU ns of its
+# native workers). `planes[c][(r, bi)]` are the decoded planes the host
+# pixel stage reads.
+def _rgn_unshift(a: np.ndarray, s: int) -> np.ndarray:
+    """Maxshift decode (T.800 H.2): coefficients whose magnitude reaches
+    the shifted planes are ROI; scale them back down."""
+    mag = np.abs(a)
+    hi = mag >= (1 << s)
+    return np.where(hi, np.sign(a) * (mag >> s), a)
+
+
+class _CardTable:
+    """Tier-1 on the card: each block a row of the stage's code-block table
+    (checked as it is added), decoded after the upload into the stage's
+    device buffer (_SubbandStage.upload)."""
+    planes = None
+
+    def __init__(self, plan, tile, tdata, stage, num_threads):
+        self.plan, self.tile, self.stage = plan, tile, stage
+        stage.t1.add_tile(tdata)
+        self.add = stage.t1.add  # one call a block
+
+    def band(self, c, r, bi, band):
+        """(element offset of the band's plane in the flat buffer, its row
+        stride)."""
+        return (self.stage.plane_offset(*_leaf(self.plan, self.tile, c, r,
+                                               bi)), band.w)
+
+    def finish(self):
+        return self.stage.t1.end_tile(), 0
+
+
+class _NativeInto:
+    """The native decoder, one batch a tile, writing each block straight
+    into its int32 subband plane (the stage's leaf where the device route
+    takes the tile); RGN-shifted planes are scaled back after."""
+
+    def __init__(self, plan, tile, tdata, stage, num_threads):
+        self.plan, self.tile, self.stage = plan, tile, stage
+        self.num_threads = num_threads
+        self.batch = BlockBatch(base=tdata)
+        self.planes = [{} for _ in plan.ccs]
+
+    def _target(self, c, r, bi, band) -> np.ndarray:
+        if self.stage is None:
+            return np.zeros((band.h, band.w), np.int32)
+        i, idx = _leaf(self.plan, self.tile, c, r, bi)
+        return self.stage.leaves[i][idx]
+
+    def band(self, c, r, bi, band):
+        """(address of the band's int32 plane, its row stride); the plane
+        is kept in `planes`, alive until the batch has run."""
+        a = self._target(c, r, bi, band)
+        assert a.dtype == np.int32 and a.flags.c_contiguous
+        self.planes[c][(r, bi)] = a
+        # the band's blocks go straight to the batch: one call a block
+        self.add = (self.batch.add_ht if self.plan.ccs[c].cblk_style & 0x40
+                    else self.batch.add_t1)
+        return a.ctypes.data, a.shape[1]
+
+    def finish(self):
+        self.batch.run_into(self.num_threads)
+        rgn = self.plan.cp.rgn or {}
+        for c, planes in enumerate(self.planes):
+            if rgn.get(c, 0):
+                for a in planes.values():
+                    a[...] = _rgn_unshift(a, rgn[c])
+        return len(self.batch), self.batch.worker_cpu_ns
+
+
+class _NativeBlocks(_NativeInto):
+    """As _NativeInto, into int32 planes of its own; then the 9/7
+    components' coefficients are dequantised (midpoint reconstruction) into
+    float64 planes. Where the device route takes the tile, every plane goes
+    into its stage leaf by one (casting) assignment."""
+
+    def _target(self, c, r, bi, band) -> np.ndarray:
+        return np.zeros((band.h, band.w), np.int32)
+
+    def finish(self):
+        n, cpu_ns = super().finish()
+        for c, planes in enumerate(self.planes):
+            cc = self.plan.ccs[c]
+            order = _band_order(cc)
+            for (r, bi), a in planes.items():
+                if not cc.reversible:
+                    eps, mu = cc.band_q[order.index((r, bi))]
+                    band = self.tile.resolutions[c][r].bands[bi]
+                    delta = _eps_mu_to_delta(eps, mu,
+                                             self.plan.depth + band.gain)
+                    mag = np.abs(a).astype(np.float64)
+                    a = planes[(r, bi)] = np.sign(a) * np.where(
+                        mag > 0, (mag + 0.5) * delta, 0.0)
+                if self.stage is not None:
+                    i, idx = _leaf(self.plan, self.tile, c, r, bi)
+                    self.stage.leaves[i][idx][...] = a
+        return n, cpu_ns
+
+
+_SINKS = {"card_table": _CardTable, "native_into": _NativeInto,
+          "native_blocks": _NativeBlocks}
+
+
+def _tier1(plan: StreamPlan, tile: _Tile, pdec: PacketDecoder, tdata: bytes,
+           stage: Optional[_SubbandStage], num_threads: int):
+    """Tier-1 of every code-block of the tile through the plan's sink, and
+    its counters; returns the sink's decoded planes (None on the card)."""
+    sink = _SINKS[plan.tier1](plan, tile, tdata, stage, num_threads)
+    for c, r, bi, band, blocks in _tile_codeblocks(plan, tile, pdec, tdata):
+        dest = sink.band(c, r, bi, band)
+        add = sink.add
+        for block in blocks:
+            add(block, dest)
+    n, cpu_ns = sink.finish()
+    add_count("imgcodec.jpeg2k.codeblocks", n)
+    if plan.tier1 == "card_table":
+        add_count("imgcodec.jpeg2k.codeblocks_device", n)
+    charge_ns("imgcodec.jpeg2k.t1", cpu_ns)
+    return sink.planes
+
+
+# ------------------------------------------------------ host pixel stage
+def _host_output(plan: StreamPlan):
+    """The zero samples the host pixel stage writes into: a plane a
+    component on its own grid where subsampled, else the image (or the
+    region) [H, W, C]."""
+    siz, C = plan.siz, plan.siz.ncomp
+    if plan.subsampled:
+        d = 1 << plan.discard
+        return [np.zeros((ceil_div(siz.height, fy) - ceil_div(siz.y0, fy),
+                          ceil_div(siz.width, fx) - ceil_div(siz.x0, fx)),
+                         plan.dtype)
+                for fx, fy in ((sx * d, sy * d) for sx, sy in plan.sub)]
+    roi = plan.roi
+    shape = (roi[2] - roi[0], roi[3] - roi[1]) if roi else plan.out_shape
+    return np.zeros(shape + (C,), plan.dtype)
+
+
+def _idwt_plane(plan: StreamPlan, tile: _Tile, planes, c: int) -> np.ndarray:
+    """Component c's inverse DWT on the host: native multi-level 5/3
+    synthesis (bit-identical), torch lifting for 9/7. With a discard the
+    finest `discard` levels are dropped: lev runs over the coarsest."""
+    cc, p = plan.ccs[c], planes[c]
+    bands = [(p[(r, 0)], p[(r, 1)], p[(r, 2)])
+             for r in (cc.levels - lev + 1
+                       for lev in range(plan.discard + 1, cc.levels + 1))]
+    d = 1 << plan.discard
+    origin = (ceil_div(tile.comp_rects[c][1], d),
+              ceil_div(tile.comp_rects[c][0], d))
+    if cc.reversible:
+        return idwt53(p[(0, 0)], bands, tile.comp_dims[c], origin)
+    return _host_idwt2d(p[(0, 0)], bands, tile.comp_dims[c], False, origin)
+
+
+def _host_pixels(plan: StreamPlan, tile: _Tile, planes, out,
+                 num_threads: int) -> None:
+    """The host pixel stage of one tile into `out`: the components' inverse
+    DWTs, then the fused native epilogue where it applies, else numpy's."""
+    idwt = functools.partial(_idwt_plane, plan, tile, planes)
+    C = plan.siz.ncomp
+    if plan.reversible and C > 1 and num_threads != 1:
+        # the native IDWT releases the GIL: components in parallel on a
+        # PERSISTENT pool (no thread start/join churn per tile)
+        comps = list(_plane_pool().map(idwt, range(C)))
+    else:
+        comps = [idwt(c) for c in range(C)]
+    if (plan.reversible and not plan.subsampled and not plan.signed
+            and plan.depth == 8 and plan.roi is None):
+        _native_epilogue(plan, tile, comps, out)
+    else:
+        _numpy_epilogue(plan, tile, comps, out)
+
+
+def _native_epilogue(plan: StreamPlan, tile: _Tile, comps, out) -> None:
+    """Inverse RCT (or none), level shift, clamp and interleave in one
+    native sweep, for unsigned 8-bit 5/3 components on one grid."""
+    L = _native_lib()
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    rx0, ry0, rx1, ry1 = tile.reduced
+    th, tw = ry1 - ry0, rx1 - rx0
+    d = 1 << plan.discard
+    oy0 = ry0 - ceil_div(plan.siz.y0, d)
+    ox0 = rx0 - ceil_div(plan.siz.x0, d)
+    dst = out[oy0:oy0 + th, ox0:ox0 + tw]
+    if len(comps) == 3 and plan.cp.mct:
+        tile_u8 = np.empty((th, tw, 3), np.uint8)
+        L.tic_j2k_rct_shift_u8(*(p.ctypes.data_as(i32p) for p in comps),
+                               th * tw, tile_u8.ctypes.data_as(u8p))
+        dst[...] = tile_u8
+        return
+    for c, p in enumerate(comps):
+        tile_u8 = np.empty((th, tw), np.uint8)
+        L.tic_j2k_shift_u8(p.ctypes.data_as(i32p), th * tw, 1,
+                           tile_u8.ctypes.data_as(u8p))
+        dst[:, :, c] = tile_u8
+
+
+def _numpy_epilogue(plan: StreamPlan, tile: _Tile, comps, out) -> None:
+    """Inverse MCT (equal component grids only), rounding of 9/7
+    components, level shift (none for signed components, T.800 G.1) and
+    clamp; then the tile's samples into `out`: a component's own plane
+    where subsampled, the region's share with a region, else the tile's
+    place in the image."""
+    siz, sub, d = plan.siz, plan.sub, 1 << plan.discard
+    if plan.cp.mct and siz.ncomp == 3 and sub[0] == sub[1] == sub[2]:
+        y, cb_, cr = comps
+        if plan.cp.reversible:  # inverse RCT
+            g = y - ((cb_ + cr) >> 2)
+            comps = [cr + g, g, cb_ + g]
+        else:  # inverse ICT
+            comps = [y + 1.402 * cr, y - 0.344136 * cb_ - 0.714136 * cr,
+                     y + 1.772 * cb_]
+    depth, signed = plan.depth, plan.signed
+    shift = 0 if signed else 1 << (depth - 1)
+    minv = -(1 << (depth - 1)) if signed else 0
+    maxv = (1 << (depth - 1)) - 1 if signed else (1 << depth) - 1
+    tx0, ty0, tx1, ty1 = tile.rect
+    rx0, ry0, rx1, ry1 = tile.reduced
+    roi = plan.roi
+    for c, p in enumerate(comps):
+        if not plan.ccs[c].reversible:
+            p = np.round(p)
+        p = np.clip(p + shift, minv, maxv).astype(plan.dtype)
+        if plan.subsampled:
+            fx, fy = sub[c][0] * d, sub[c][1] * d
+            cy0 = ceil_div(ty0, fy) - ceil_div(siz.y0, fy)
+            cx0 = ceil_div(tx0, fx) - ceil_div(siz.x0, fx)
+            h, w = tile.comp_dims[c]
+            out[c][cy0:cy0 + h, cx0:cx0 + w] = p
+        elif roi is not None:
+            iy0, ix0 = max(ty0, roi[0]), max(tx0, roi[1])
+            iy1, ix1 = min(ty1, roi[2]), min(tx1, roi[3])
+            out[iy0 - roi[0]:iy1 - roi[0], ix0 - roi[1]:ix1 - roi[1], c] = (
+                p[iy0 - ty0:iy1 - ty0, ix0 - tx0:ix1 - tx0])
+        else:
             oy0 = ry0 - ceil_div(siz.y0, d)
             ox0 = rx0 - ceil_div(siz.x0, d)
-            if C == 3 and cp.mct and sub[0] == sub[1] == sub[2]:
-                tile_u8 = np.empty((th, tw, 3), np.uint8)
-                L.tic_j2k_rct_shift_u8(
-                    planes[0].ctypes.data_as(i32p),
-                    planes[1].ctypes.data_as(i32p),
-                    planes[2].ctypes.data_as(i32p),
-                    th * tw, tile_u8.ctypes.data_as(u8p))
-                out[oy0:oy0 + th, ox0:ox0 + tw, :] = tile_u8
-                continue
-            if not cp.mct or C != 3:
-                for c in range(C):
-                    tile_u8 = np.empty((th, tw), np.uint8)
-                    L.tic_j2k_shift_u8(
-                        planes[c].ctypes.data_as(i32p), th * tw, 1,
-                        tile_u8.ctypes.data_as(u8p))
-                    out[oy0:oy0 + th, ox0:ox0 + tw, c] = tile_u8
-                continue
+            out[oy0:oy0 + ry1 - ry0, ox0:ox0 + rx1 - rx0, c] = p
 
-        # inverse MCT + level shift (MCT needs equal component grids)
-        if cp.mct and C == 3 and sub[0] == sub[1] == sub[2]:
-            y, cb_, cr = planes
-            if cp.reversible:  # inverse RCT
-                g = y - ((cb_ + cr) >> 2)
-                r_ = cr + g
-                b_ = cb_ + g
-            else:  # inverse ICT
-                r_ = y + 1.402 * cr
-                g = y - 0.344136 * cb_ - 0.714136 * cr
-                b_ = y + 1.772 * cb_
-            planes = [r_, g, b_]
-        # signed components carry no DC level shift (T.800 G.1)
-        shift = 0 if signed else 1 << (depth - 1)
-        minv = -(1 << (depth - 1)) if signed else 0
-        maxv = (1 << (depth - 1)) - 1 if signed else (1 << depth) - 1
-        for c in range(C):
-            p = planes[c]
-            if not ccs[c].reversible:
-                p = np.round(p)
-            p = np.clip(p + shift, minv, maxv).astype(dtype)
-            if subsampled:
-                cy0 = ceil_div(ty0, fy[c]) - ceil_div(siz.y0, fy[c])
-                cx0 = ceil_div(tx0, fx[c]) - ceil_div(siz.x0, fx[c])
-                plane_out[c][cy0 : cy0 + tdims[c][0],
-                             cx0 : cx0 + tdims[c][1]] = p
-            elif roi is not None:
-                iy0, ix0 = max(ty0, roi[0]), max(tx0, roi[1])
-                iy1, ix1 = min(ty1, roi[2]), min(tx1, roi[3])
-                out[iy0 - roi[0] : iy1 - roi[0],
-                    ix0 - roi[1] : ix1 - roi[1], c] = (
-                    p[iy0 - ty0 : iy1 - ty0, ix0 - tx0 : ix1 - tx0]
-                )
-            else:
-                oy0 = ry0 - ceil_div(siz.y0, d)
-                ox0 = rx0 - ceil_div(siz.x0, d)
-                out[oy0 : oy0 + th, ox0 : ox0 + tw, c] = p
 
-    if uniform_grid and tiles_seen:
+def _host_image(plan: StreamPlan, out, planar: bool):
+    """The host route's result from `out`: the image ([H, W] for one
+    component), or its component planes with `planar`. Subsampled planes
+    are interleaved on the full reference grid by sample replication (a
+    component sample at v covers grid columns [v*dx, (v+1)*dx)), then cut
+    to the region."""
+    C = plan.siz.ncomp
+    if planar:
+        return out if plan.subsampled else [out[:, :, c] for c in range(C)]
+    if not plan.subsampled:
+        return out[:, :, 0] if C == 1 else out
+    siz, d = plan.siz, 1 << plan.discard
+    out_h, out_w = plan.out_shape
+    full = np.empty((out_h, out_w, C), plan.dtype)
+    for c, (sx, sy) in enumerate(plan.sub):
+        a = out[c]
+        if (sx, sy) != (1, 1):
+            a = np.repeat(np.repeat(a, sy, 0), sx, 1)
+            # component origin ceil(y0/fy)*sy may start below the image
+            # origin row ceil(y0/d): edge-pad the gap
+            py = ceil_div(siz.y0, sy * d) * sy - ceil_div(siz.y0, d)
+            px = ceil_div(siz.x0, sx * d) * sx - ceil_div(siz.x0, d)
+            if py or px:
+                a = np.pad(a, ((py, 0), (px, 0)), mode="edge")
+            a = a[:out_h, :out_w]
+            if a.shape != (out_h, out_w):
+                a = np.pad(a, ((0, out_h - a.shape[0]),
+                               (0, out_w - a.shape[1])), mode="edge")
+        full[:, :, c] = a
+    if plan.post_crop is not None:
+        y0, x0, y1, x1 = plan.post_crop
+        full = full[y0:y1, x0:x1]
+    return full[:, :, 0] if C == 1 else full
+
+
+# ---------------------------------------------------------- the host stages
+def _decode_host_stages(data: bytes, num_threads: int, device,
+                        discard_levels: int, region, planar: bool,
+                        mesh=None):
+    """Tier-2 and Tier-1 of every tile, then either the host pixel stage
+    (the image as numpy) or, where the plan takes the device route, a
+    _DeviceJob: the filled upload buffer, or, with the card's Tier-1, the
+    staged code-block table."""
+    cs = unwrap_jp2(bytes(data))
+    add_count("imgcodec.jpeg2k.stream_bytes", len(cs))
+    plan = plan_stream(cs, device, discard_levels, region, mesh)
+    out = _host_output(plan) if plan.pixels == "host" else None
+    stage = None
+    seen = set()  # the grid's tiles with a tile-part
+    for tidx, tdata, ppt, tpoc in iter_tile_parts(cs, plan.pos,
+                                                  ppm=plan.cp.ppm):
+        tile = _tile(plan, tidx, tpoc)
+        if tile is None:
+            continue  # the tile cannot touch the region: zero work
+        with span("imgcodec.jpeg2k.t2"):
+            pdec = _tier2(plan, tile, tdata, ppt)
+        if stage is None and plan.pixels != "host":
+            stage = _subband_stage(plan, tile)
+        with span("imgcodec.jpeg2k.t1"):
+            planes = _tier1(plan, tile, pdec, tdata, stage, num_threads)
+        if plan.pixels == "host":
+            _host_pixels(plan, tile, planes, out, num_threads)
+        elif plan.pixels == "device_tile":
+            # every component's subbands stacked, one upload, IDWT + MCT +
+            # shift on the device; the image stays there
+            tcx0, tcy0 = tile.comp_rects[0][:2]
+            return _DeviceJob(stage, device, plan.cp, plan.siz.ncomp,
+                              plan.depth, tile.comp_dims[0], (tcy0, tcx0))
+        else:
+            seen.add(tidx)
+    siz = plan.siz
+    if seen:
         # leading axis T*C through one IDWT; assembled on the device, a
         # missing tile's zero subbands replaced by zero samples there
-        return _DeviceJob(stage, device, cp, C, depth,
+        return _DeviceJob(stage, device, plan.cp, siz.ncomp, plan.depth,
                           (siz.tile_h, siz.tile_w), (0, 0),
                           (siz.tiles_y, siz.tiles_x),
-                          tuple(sorted(set(range(ntiles_total))
-                                       - tiles_seen)))
+                          tuple(sorted(set(range(siz.tiles_x * siz.tiles_y))
+                                       - seen)))
     # (a stream without any of its tile-parts ends here like the host
     # path's: the zero image)
-
-    if subsampled:
-        if planar:
-            return plane_out
-        # interleave on the full reference grid by sample replication
-        # (comp sample at c-coord v covers grid columns [v*dx, (v+1)*dx))
-        full = np.empty((out_h, out_w, C), dtype)
-        for c in range(C):
-            a = plane_out[c]
-            if sub[c] != (1, 1):
-                a = np.repeat(np.repeat(a, sub[c][1], 0), sub[c][0], 1)
-                # component origin ceil(y0/fy)*sy may start below the
-                # image origin row ceil(y0/d): edge-pad the gap
-                py = ceil_div(siz.y0, fy[c]) * sub[c][1] - ceil_div(siz.y0, d)
-                px = ceil_div(siz.x0, fx[c]) * sub[c][0] - ceil_div(siz.x0, d)
-                if py or px:
-                    a = np.pad(a, ((py, 0), (px, 0)), mode="edge")
-                a = a[:out_h, :out_w]
-                if a.shape != (out_h, out_w):
-                    a = np.pad(a, ((0, out_h - a.shape[0]),
-                                   (0, out_w - a.shape[1])), mode="edge")
-            full[:, :, c] = a
-        if post_crop is not None:
-            full = full[post_crop[0] : post_crop[2],
-                        post_crop[1] : post_crop[3]]
-        return full[:, :, 0] if C == 1 else full
-
-    if planar:
-        return [out[:, :, c] for c in range(C)]
-    return out[:, :, 0] if C == 1 else out
+    return _host_image(plan, out if out is not None else _host_output(plan),
+                       planar)

@@ -13,6 +13,7 @@ import numpy as np
 
 from ...core.trace import collecting
 from ...native import lib
+from ...ops import j2k_t1
 
 # Shared thread budget across concurrently decoding images: when the
 # Decoder's outer pool runs several J2K decodes at once, each batch gets
@@ -97,25 +98,16 @@ def ht_encode(coefs: np.ndarray,
             B.value, umax.value)
 
 
-def _worker_cpu():
-    """(int64 [1] array, its pointer) for a native decode batch to add its
-    own workers' CPU time to while spans are collected; (None, None)
-    otherwise, and the workers read no clock."""
-    if not collecting():
-        return None, None
-    a = np.zeros(1, np.int64)
-    return a, a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
-
-
 class BlockBatch:
     """Accumulates code-block decode jobs for one tile and runs them all
-    in ONE native call (native/j2k_block_batch.cpp) with internal
-    work-stealing threads — replacing ~O(blocks) ctypes calls + Python
-    futures whose overhead dominated block decode (the host analog of
-    nvjpeg2k's whole-tile batching, extensions/nvjpeg2k/
-    cuda_decoder.cpp:601-640). After a run, `worker_cpu_ns` is the CPU time
-    of the native threads it started (the calling thread's not included),
-    measured only while spans are collected (0 otherwise)."""
+    in ONE native call a kind (native/j2k_block_batch.cpp) with internal
+    work-stealing threads, each block written straight into its subband
+    plane — replacing ~O(blocks) ctypes calls + Python futures whose
+    overhead dominated block decode (the host analog of nvjpeg2k's
+    whole-tile batching, extensions/nvjpeg2k/cuda_decoder.cpp:601-640).
+    After a run, `worker_cpu_ns` is the CPU time of the native threads it
+    started (the calling thread's not included), measured only while spans
+    are collected (0 otherwise)."""
 
     def __init__(self, base: bytes = b""):
         # segments are usually (off, len) ranges into `base` (the tile
@@ -123,11 +115,8 @@ class BlockBatch:
         # area appended after it
         self._base = base
         self._extra = bytearray()
-        self._ht_meta: list = []
-        self._t1_meta: list = []
-        self._results: list = []  # (key, w, h, kind, out_off)
-        self._kinds: list = []    # "ht"/"t1" per add, in add order
-        self._out_elems = 0
+        self._meta = {"HT": [], "T1": []}  # rows a kind, flat
+        self._dest = {"HT": [], "T1": []}  # (address, offset, stride) a block
         self.worker_cpu_ns = 0
 
     def _put(self, seg) -> Tuple[int, int]:
@@ -137,145 +126,48 @@ class BlockBatch:
         self._extra += seg
         return off, len(seg)
 
-    def add_ht(self, key, cup, ref, num_passes: int, w: int,
-               h: int, B: int, ucap: int) -> None:
+    def add_ht(self, block, dest) -> None:
+        """An HT block, (cup, ref, passes, w, h, B, Ucap, y, x), to `dest`:
+        (address, stride) of its int32 subband plane, the block at row y,
+        column x."""
+        cup, ref, passes, w, h, B, ucap, y, x = block
         co, cl = self._put(cup)
         ro, rl = self._put(ref or b"")
-        oo = self._out_elems
-        self._out_elems += w * h
-        self._ht_meta += [co, cl, ro, rl, num_passes, w, h, B, ucap, oo]
-        self._kinds.append("ht")
-        self._results.append((key, w, h))
+        self._meta["HT"] += (co, cl, ro, rl, passes, w, h, B, ucap)
+        addr, stride = dest
+        self._dest["HT"] += (addr, y * stride + x, stride)
 
-    def add_t1(self, key, seg, w: int, h: int, band: int,
-               num_bps: int, num_passes: int, style: int = 0) -> None:
+    def add_t1(self, block, dest) -> None:
+        """A part-1 block, (seg, w, h, band, nbps, passes, style, y, x), to
+        `dest` as `add_ht` takes it."""
+        seg, w, h, band, nbps, passes, style, y, x = block
         so, sl = self._put(seg)
-        oo = self._out_elems
-        self._out_elems += w * h
-        self._t1_meta += [so, sl, w, h, band | (style << 8), num_bps,
-                          num_passes, oo]
-        self._kinds.append("t1")
-        self._results.append((key, w, h))
+        self._meta["T1"] += j2k_t1.t1_row(so, sl, w, h, band, nbps, passes,
+                                          style)
+        addr, stride = dest
+        self._dest["T1"] += (addr, y * stride + x, stride)
 
     def _blob_bytes(self) -> bytes:
         if not self._extra:
             return self._base  # zero-copy common case
         return bytes(self._base) + bytes(self._extra)
 
-    def run_into(self, dests, nthreads: int = 0) -> None:
-        """Direct-to-band decode: dests[i] = (band_array int32 [H, W],
-        row, col) per added block, in add order — every block is written
-        straight into its subband array by the native workers (no
-        intermediate coefficient buffer, no Python consume loop)."""
-        with _ThreadBudget() as fair:
-            self._run_into(dests, nthreads if nthreads > 0 else fair)
-
-    def _run_into(self, dests, nthreads: int) -> None:
-        L = lib()
+    def run_into(self, nthreads: int = 0) -> None:
+        """Decodes every block into its plane (HT blocks, then part-1); the
+        planes must outlive the call."""
         blob = self._blob_bytes()
-        n_ht = len(self._ht_meta) // 10
-        n_t1 = len(self._t1_meta) // 8
-        assert len(dests) == n_ht + n_t1
-        # dests arrive in add order (T1/HT interleaved); split per kind
-        ht_d, t1_d = [], []
-        for (kind, dest) in zip(self._kinds, dests):
-            (ht_d if kind == "ht" else t1_d).append(dest)
-        for n, meta, width, fn, dlist in (
-            (n_ht, self._ht_meta, 10, L.tic_ht_decode_batch_into, ht_d),
-            (n_t1, self._t1_meta, 8, L.tic_t1_decode_batch_into, t1_d),
-        ):
-            if n == 0:
-                continue
-            # strip the trailing out_off column from the contiguous meta
-            m = np.asarray(meta, np.int32).reshape(n, width)[:, :width - 1]
-            m = np.ascontiguousarray(m)
-            # destination addresses via numpy arithmetic: a contiguous u64
-            # address array is bit-compatible with the int32_t*const* the
-            # native side takes (one ctypes cast total, not one per block —
-            # a per-block ctypes.cast loop costs more than the decode)
-            # dests arrive band-by-band: consecutive entries share the same
-            # array, so an identity check on the previous entry replaces
-            # the id() dict (and list->np.array beats per-element numpy
-            # scalar stores at ~800 blocks/image)
-            bases, bstrides = [], []
-            bidx_l, rows_l, cols_l = [], [], []
-            last_arr = None
-            j = -1
-            for (arr, r, c) in dlist:
-                if arr is not last_arr:
-                    assert arr.dtype == np.int32 and arr.flags.c_contiguous
-                    j = len(bases)
-                    bases.append(arr.ctypes.data)
-                    bstrides.append(arr.shape[1])
-                    last_arr = arr
-                bidx_l.append(j)
-                rows_l.append(r)
-                cols_l.append(c)
-            bidx = np.asarray(bidx_l, np.int64)
-            rows = np.asarray(rows_l, np.int64)
-            cols = np.asarray(cols_l, np.int64)
-            basea = np.asarray(bases, np.uint64)[bidx]
-            strides = np.asarray(bstrides, np.int64)[bidx]
-            addrs = basea + ((rows * strides + cols) * 4).astype(np.uint64)
-            rcs = np.zeros(n, np.int32)
-            cpu, cpu_p = _worker_cpu()
-            rc = fn(n, blob, m.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                    addrs.ctypes.data_as(
-                        ctypes.POINTER(ctypes.POINTER(ctypes.c_int32))),
-                    strides.ctypes.data_as(
-                        ctypes.POINTER(ctypes.c_int64)),
-                    rcs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                    nthreads, cpu_p)
-            if cpu is not None:
-                self.worker_cpu_ns += int(cpu[0])
-            if rc != 0:
-                i = int(np.nonzero(rcs)[0][0])
-                kind = "HT" if width == 10 else "T1"
-                raise ValueError(
-                    f"J2K {kind} block decode failed rc={rcs[i]} "
-                    f"(block {i} of {n})")
-
-    def run(self, nthreads: int = 0):
-        """Decode everything; yields (key, int32 [h, w]) in add order."""
-        L = lib()
-        out = np.zeros(self._out_elems, np.int32)
-        outp = out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
-        blob = self._blob_bytes()
-        n_ht = len(self._ht_meta) // 10
-        n_t1 = len(self._t1_meta) // 8
         with _ThreadBudget() as fair:
-            nt = nthreads if nthreads > 0 else fair
-            for n, meta, fn, width in (
-                (n_ht, self._ht_meta, L.tic_ht_decode_batch, 10),
-                (n_t1, self._t1_meta, L.tic_t1_decode_batch, 8),
-            ):
-                if n == 0:
+            for kind in ("HT", "T1"):
+                if not self._meta[kind]:
                     continue
-                m = np.asarray(meta, np.int32)
-                rcs = np.zeros(n, np.int32)
-                cpu, cpu_p = _worker_cpu()
-                rc = fn(n, blob,
-                        m.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                        outp,
-                        rcs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                        nt, cpu_p)
-                if cpu is not None:
-                    self.worker_cpu_ns += int(cpu[0])
-                if rc != 0:
-                    i = int(np.nonzero(rcs)[0][0])
-                    kind = "HT" if fn is L.tic_ht_decode_batch else "T1"
-                    raise ValueError(
-                        f"J2K {kind} block decode failed rc={rcs[i]} "
-                        f"(block {i} of {n})")
-        # out offsets were assigned monotonically in add order
-        out_off = 0
-        for (key, w, h) in self._results:
-            blk = out[out_off:out_off + w * h].reshape(h, w)
-            out_off += w * h
-            yield key, blk
+                d = np.asarray(self._dest[kind], np.int64).reshape(-1, 3)
+                self.worker_cpu_ns += j2k_t1.decode_batch_into(
+                    kind, blob, self._meta[kind], d[:, 0], d[:, 1], d[:, 2],
+                    nthreads if nthreads > 0 else fair,
+                    count_cpu=collecting())
 
     def __len__(self) -> int:
-        return len(self._results)
+        return sum(len(d) for d in self._dest.values()) // 3
 
 
 class EncodeBatch:

@@ -103,17 +103,6 @@ def _declare(L: ctypes.CDLL) -> None:
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
     ]
     L.tic_jpeg_decode_coefficients_roi_into.restype = ctypes.c_int
-    L.tic_jpeg_decode_coefficients_packed.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t, u8p * 4,
-        ctypes.POINTER(ctypes.c_int8) * 4, c_i32p, c_i32p, c_i32p,
-        ctypes.c_int32,
-    ]
-    L.tic_jpeg_decode_coefficients_packed.restype = ctypes.c_int
-    L.tic_jpeg_pack_coefficients.argtypes = [
-        c_i16p, ctypes.c_int64, u8p, ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_int8),
-    ]
-    L.tic_jpeg_pack_coefficients.restype = ctypes.c_int
     L.tic_jpeg_split_segments.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32),
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
@@ -233,8 +222,6 @@ def _declare_j2k(L: ctypes.CDLL) -> None:
                                 i32p, i32p, i32p],
         # Tier-1, a tile's blocks in one call; the last argument of the
         # decodes takes the CPU time of the workers they start (or None)
-        "tic_t1_decode_batch": [c_i32, cp, i32p, i32p, i32p, c_i32, i64p],
-        "tic_ht_decode_batch": [c_i32, cp, i32p, i32p, i32p, c_i32, i64p],
         "tic_t1_decode_batch_into": [c_i32, cp, i32p, i32pp, i64p, i32p,
                                      c_i32, i64p],
         "tic_ht_decode_batch_into": [c_i32, cp, i32p, i32pp, i64p, i32p,

@@ -55,76 +55,19 @@ void fan_out(int32_t n, int32_t nthreads, F& worker,
 
 extern "C" {
 
-int tic_ht_decode_block(const uint8_t* cup, int32_t lcup, const uint8_t* ref,
-                        int32_t lref, int32_t num_passes, int32_t w,
-                        int32_t h, int32_t B, int32_t Ucap, int32_t* out);
-
-int tic_j2k_t1_decode(const uint8_t* data, int len, int w, int h, int band,
-                      int num_bps, int num_passes, int32_t* out);
-
 int tic_j2k_t1_decode_strided_style(const uint8_t* data, int len, int w,
                                     int h, int64_t stride, int band,
                                     int num_bps, int num_passes,
                                     int32_t* out, int style);
 
-// meta: 10 int32 per block —
-//   [cup_off, cup_len, ref_off, ref_len, num_passes, w, h, B, Ucap, out_off]
-// out_off indexes int32 elements of `out`. rcs: per-block return codes.
-// cpu_ns (nullable): the CPU time of the workers this call starts is added
-// to it (fan_out). Returns the first nonzero rc (0 if all blocks decoded).
-int tic_ht_decode_batch(int32_t n, const uint8_t* blob, const int32_t* meta,
-                        int32_t* out, int32_t* rcs, int32_t nthreads,
-                        int64_t* cpu_ns) {
-    std::atomic<int32_t> next(0);
-    std::atomic<int32_t> bad(0);
-    auto worker = [&]() {
-        for (;;) {
-            int32_t i = next.fetch_add(1, std::memory_order_relaxed);
-            if (i >= n) break;
-            const int32_t* m = meta + 10 * i;
-            const uint8_t* ref = m[3] ? blob + m[2] : nullptr;
-            int rc = tic_ht_decode_block(blob + m[0], m[1], ref, m[3], m[4],
-                                         m[5], m[6], m[7], m[8],
-                                         out + m[9]);
-            rcs[i] = rc;
-            if (rc) bad.store(rc, std::memory_order_relaxed);
-        }
-    };
-    fan_out(n, nthreads, worker, cpu_ns);
-    return bad.load();
-}
-
-// meta: 8 int32 per block —
-//   [seg_off, seg_len, w, h, band, num_bps, num_passes, out_off]
-int tic_t1_decode_batch(int32_t n, const uint8_t* blob, const int32_t* meta,
-                        int32_t* out, int32_t* rcs, int32_t nthreads,
-                        int64_t* cpu_ns) {
-    std::atomic<int32_t> next(0);
-    std::atomic<int32_t> bad(0);
-    auto worker = [&]() {
-        for (;;) {
-            int32_t i = next.fetch_add(1, std::memory_order_relaxed);
-            if (i >= n) break;
-            const int32_t* m = meta + 8 * i;
-            // m[4]: band type byte 0, code-block style bits 8+
-            int rc = tic_j2k_t1_decode_strided_style(
-                blob + m[0], m[1], m[2], m[3], m[2], m[4] & 0xFF, m[5],
-                m[6], out + m[7], m[4] >> 8);
-            rcs[i] = rc;
-            if (rc) bad.store(rc, std::memory_order_relaxed);
-        }
-    };
-    fan_out(n, nthreads, worker, cpu_ns);
-    return bad.load();
-}
-
 // Direct-to-band batch decode: each block is written straight into its
 // subband array at (dests[i], strides[i]) — no intermediate coefficient
-// blob and no per-block Python consume loop. meta layouts match the
-// contiguous batches above minus out_off:
-//   T1: 7 int32 per block [seg_off, seg_len, w, h, band, num_bps, num_passes]
-//   HT: 9 int32 per block [cup_off, cup_len, ref_off, ref_len, num_passes,
-//                          w, h, B, Ucap]
+// blob and no per-block Python consume loop. meta, a block's int32 row:
+//   T1: 7 [seg_off, seg_len, w, h, band | style << 8, num_bps, num_passes]
+//   HT: 9 [cup_off, cup_len, ref_off, ref_len, num_passes, w, h, B, Ucap]
+// rcs: per-block return codes. cpu_ns (nullable): the CPU time of the
+// workers this call starts is added to it (fan_out). Returns the first
+// nonzero rc (0 if all blocks decoded).
 int tic_t1_decode_batch_into(int32_t n, const uint8_t* blob,
                              const int32_t* meta, int32_t* const* dests,
                              const int64_t* strides, int32_t* rcs,

@@ -369,10 +369,7 @@ inline int extend(int v, int t) {
 struct Component {
   int id, h, v, tq;
   int dc_tbl = 0, ac_tbl = 0;
-  int16_t* coef = nullptr;  // [bh][bw][64] (wide mode, natural order)
-  uint8_t* lo = nullptr;    // [bh][bw][lo_len] packed mode, zigzag low bytes
-  int8_t* hi = nullptr;     // [bh][bw][8] packed mode, zigzag 0..7 high bytes
-  int lo_len = 64;          // zigzag positions carried on the packed wire
+  int16_t* coef = nullptr;  // [bh][bw][64] (natural order)
   int bw = 0, bh = 0;       // MCU-padded block dims
   int true_bw = 0, true_bh = 0;
 };
@@ -394,14 +391,6 @@ struct Decoder {
   // optional caller-provided coefficient buffers (batch preallocation path);
   // must match the parsed MCU-padded geometry
   int16_t* ext_coef[4] = {nullptr, nullptr, nullptr, nullptr};
-  // packed-wire mode: write zigzag lo/hi bytes directly at decode time (the
-  // scan loop's k IS the zigzag index — this is cheaper than the natural-
-  // order write, and the int16 batch array is never materialized)
-  uint8_t* ext_lo[4] = {nullptr, nullptr, nullptr, nullptr};
-  int8_t* ext_hi[4] = {nullptr, nullptr, nullptr, nullptr};
-  int32_t ext_lo_len[4] = {64, 64, 64, 64};
-  bool packed_mode = false;
-  int packed_overflow = 0;  // a coefficient did not fit the packed wire
   const int32_t* ext_bw = nullptr;
   const int32_t* ext_bh = nullptr;
   int ext_ncomp = 0;
@@ -480,12 +469,6 @@ bool Decoder::parse_and_decode() {
       case 0xC0: case 0xC1: case 0xC2: {
         sof_marker = m;
         progressive = (m == 0xC2);
-        if (progressive && packed_mode) {
-          // progressive refinement needs int16 read-modify-write; the caller
-          // must route these streams to the wide wire
-          error = -3;
-          return false;
-        }
         precision = seg[0];
         height = be16(seg + 1);
         width = be16(seg + 3);
@@ -511,16 +494,7 @@ bool Decoder::parse_and_decode() {
           int th = (height * cc.v + vmax - 1) / vmax;
           cc.true_bw = (tw + 7) / 8;
           cc.true_bh = (th + 7) / 8;
-          if (packed_mode) {
-            if (c >= ext_ncomp || cc.bw != ext_bw[c] || cc.bh != ext_bh[c])
-              return false;  // geometry mismatch with preallocated batch slot
-            cc.lo = ext_lo[c];
-            cc.hi = ext_hi[c];
-            cc.lo_len = ext_lo_len[c];
-            if (cc.lo_len < 8 || cc.lo_len > 64) return false;
-            memset(cc.lo, 0, (size_t)cc.bw * cc.bh * cc.lo_len);
-            memset(cc.hi, 0, (size_t)cc.bw * cc.bh * 8);
-          } else if (ext_coef[0]) {
+          if (ext_coef[0]) {
             if (c >= ext_ncomp || cc.bw != ext_bw[c] || cc.bh != ext_bh[c])
               return false;  // geometry mismatch with preallocated batch slot
             cc.coef = ext_coef[c];
@@ -860,57 +834,22 @@ void Decoder::sequential_scan(Scan& s) {
             // table byte would drive get_bits into UB shifts
             if (t < 0 || t > 15) { error = 1; return; }
             pred[j] += extend(br.get_bits(t), t);
-            if (packed_mode) {
-              // zigzag wire: k is already the zigzag index
-              const int lim = c.lo_len;
-              uint8_t* plo = c.lo + bidx * lim;
-              int8_t* phi = c.hi + bidx * 8;
-              if (wr) {
-                plo[0] = (uint8_t)(pred[j] & 0xFF);
-                phi[0] = (int8_t)(pred[j] >> 8);
+            int16_t* block = c.coef + bidx * 64;
+            if (wr) block[0] = (int16_t)pred[j];
+            int k = 1;
+            while (k < 64) {
+              int sym = decode_huff(br, act);
+              if (sym < 0) { error = 1; return; }
+              int r = sym >> 4, sz = sym & 15;
+              if (sz == 0) {
+                if (r == 15) { k += 16; continue; }
+                break;
               }
-              int k = 1;
-              while (k < 64) {
-                int sym = decode_huff(br, act);
-                if (sym < 0) { error = 1; return; }
-                int r = sym >> 4, sz = sym & 15;
-                if (sz == 0) {
-                  if (r == 15) { k += 16; continue; }
-                  break;
-                }
-                k += r;
-                if (k > 63) { error = 1; return; }
-                int v = extend(br.get_bits(sz), sz);
-                if (!wr) { k++; continue; }
-                if (k < lim) {
-                  plo[k] = (uint8_t)(v & 0xFF);
-                  if (k < 8)
-                    phi[k] = (int8_t)(v >> 8);
-                  else
-                    packed_overflow |= (v + 128) & ~255;
-                } else {
-                  packed_overflow |= 1;  // beyond the truncated wire
-                }
-                k++;
-              }
-            } else {
-              int16_t* block = c.coef + bidx * 64;
-              if (wr) block[0] = (int16_t)pred[j];
-              int k = 1;
-              while (k < 64) {
-                int sym = decode_huff(br, act);
-                if (sym < 0) { error = 1; return; }
-                int r = sym >> 4, sz = sym & 15;
-                if (sz == 0) {
-                  if (r == 15) { k += 16; continue; }
-                  break;
-                }
-                k += r;
-                if (k > 63) { error = 1; return; }
-                int v = extend(br.get_bits(sz), sz);
-                if (wr) block[kNat[k]] = (int16_t)v;
-                k++;
-              }
+              k += r;
+              if (k > 63) { error = 1; return; }
+              int v = extend(br.get_bits(sz), sz);
+              if (wr) block[kNat[k]] = (int16_t)v;
+              k++;
             }
           }
         }
@@ -1365,70 +1304,6 @@ int tic_jpeg_split_segments(const uint8_t* scan, int64_t scan_len,
     }
   }
   return seg;
-}
-
-// Packed-wire batch variant: entropy-decode directly into the caller's
-// zigzag lo/hi wire buffers (72 B/block vs 128 — see
-// tic_jpeg_pack_coefficients) with no int16 intermediate. Returns 0 on
-// success, 1 if a tail coefficient overflowed int8 (caller must re-decode
-// with the wide wire), -3 for progressive streams (wide wire required),
-// -1 on parse error.
-int tic_jpeg_decode_coefficients_packed(const uint8_t* data, size_t len,
-                                        uint8_t** lo_bufs, int8_t** hi_bufs,
-                                        const int32_t* lo_lens,
-                                        const int32_t* exp_bw,
-                                        const int32_t* exp_bh,
-                                        int32_t exp_ncomp) {
-  Decoder d;
-  d.base = data;
-  d.len = len;
-  d.packed_mode = true;
-  for (int c = 0; c < exp_ncomp && c < 4; c++) {
-    d.ext_lo[c] = lo_bufs[c];
-    d.ext_hi[c] = hi_bufs[c];
-    d.ext_lo_len[c] = lo_lens[c];
-  }
-  d.ext_bw = exp_bw;
-  d.ext_bh = exp_bh;
-  d.ext_ncomp = exp_ncomp;
-  if (!d.parse_and_decode()) return d.error == -3 ? -3 : -1;
-  if (d.ncomp != exp_ncomp) return -2;
-  return d.packed_overflow ? 1 : 0;
-}
-
-// Pack natural-order int16 coefficient blocks into the compact device wire
-// format: per block, lo_len low bytes in ZIGZAG order plus the high bytes
-// of the first 8 zigzag coefficients (where large values live). 72
-// bytes/block (lo_len=64) vs 128 — the H2D transfer is the hybrid decode's
-// bottleneck, so the host trades one linear pass for ~44% fewer wire bytes
-// (the reference's analog is keeping the host→device handoff inside
-// nvjpeg's pinned buffers, extensions/nvjpeg/cuda_decoder.cpp:539-556).
-// This is the progressive-stream route onto the packed wire: refinement
-// scans need int16 read-modify-write, so they decode wide first and pack
-// after. Returns 1 if any coefficient beyond zigzag position 7 falls
-// outside int8, or a coefficient beyond the truncated lo_len is nonzero
-// (caller must fall back to a wider wire), else 0.
-int tic_jpeg_pack_coefficients(const int16_t* coef, int64_t nblocks,
-                               uint8_t* lo, int32_t lo_len, int8_t* hi) {
-  int overflow = 0;
-  for (int64_t b = 0; b < nblocks; b++) {
-    const int16_t* blk = coef + b * 64;
-    uint8_t* plo = lo + b * lo_len;
-    int8_t* phi = hi + b * 8;
-    for (int k = 0; k < 8; k++) {
-      int v = blk[kNat[k]];
-      plo[k] = (uint8_t)(v & 0xFF);
-      phi[k] = (int8_t)(v >> 8);
-    }
-    for (int k = 8; k < lo_len; k++) {
-      int v = blk[kNat[k]];
-      plo[k] = (uint8_t)(v & 0xFF);
-      overflow |= (v + 128) & ~255;  // nonzero iff v < -128 or v > 127
-    }
-    for (int k = lo_len; k < 64; k++)
-      overflow |= blk[kNat[k]];  // truncated positions must be zero
-  }
-  return overflow ? 1 : 0;
 }
 
 }  // extern "C"

@@ -2,8 +2,8 @@
 
 `BlockTable` describes the code-blocks of a tile, or of every tile of a
 uniform grid, instead of decoding them: a row of ROW int32 a block (the
-native batch decoder's meta row, then where its coefficients go). Each row
-is checked as it is added with the rules of the native decoder
+native batch decoder's meta row, `t1_row`, then where its coefficients go).
+Each row is checked as it is added with the rules of the native decoder
 (native/j2k_t1.cpp), and `end_tile` raises that decoder's ValueError, so a
 malformed stream fails on the host before any launch and the kernel needs
 no error path. `staged` lays out the table, sorted longest segment first,
@@ -12,8 +12,8 @@ up in one copy.
 
 `decode_codeblocks` decodes every row of a staged table into a zeroed flat
 int32 buffer. A CUDA buffer launches csrc/j2k_t1.cu (one warp a code-block)
-or raises; a CPU buffer takes the plain version, the native host decoder
-(`tic_t1_decode_batch_into`) on the same rows.
+or raises; a CPU buffer takes the plain version, the native host decoder on
+the same rows (`decode_batch_into`, which the host Tier-1 calls too).
 """
 from __future__ import annotations
 
@@ -28,11 +28,13 @@ import torch
 from .. import _build
 from ..native import lib as _native_lib
 
-# int32 a row: segment offset in the data (bytes) and length, w, h,
-# band | style << 8, bit-planes, passes (the native decoder's meta row),
-# then the destination's row stride and its offset in the flat buffer
-# (elements, low and high 32 bits)
-ROW = 10
+# int32 a row of the native batch decoder (native/j2k_block_batch.cpp):
+# segment offset in the data (bytes) and length, w, h, band | style << 8,
+# bit-planes, passes
+META = 7
+# int32 a row of the staged table: the META row, then the destination's row
+# stride and its offset in the flat buffer (elements, low and high 32 bits)
+ROW = META + 3
 # the most coefficients a code-block may have (T.800 A.6.1: xcb + ycb <= 12),
 # which the kernel keeps in shared memory
 MAX_BLOCK_AREA = 4096
@@ -65,6 +67,54 @@ def _blob_ok(blob) -> bool:
     return True
 
 
+def t1_row(off: int, length: int, w: int, h: int, band: int, nbps: int,
+           passes: int, style: int) -> tuple:
+    """The META row of a part-1 code-block whose segment is `length` bytes
+    at `off` of its batch's data."""
+    return (off, length, w, h, band | (style << 8), nbps, passes)
+
+
+# the native batch decoders that write each block in place, and their rows
+_ENTRIES = {"T1": ("tic_t1_decode_batch_into", META),
+            "HT": ("tic_ht_decode_batch_into", 9)}
+
+
+def decode_batch_into(kind: str, data, meta, bases, offsets, strides,
+                      nthreads: int, count_cpu: bool = False) -> int:
+    """One call of the native batch decoder of `kind` ("T1": META ints a
+    row; "HT": its own rows of 9) on the blocks whose rows `meta` holds
+    (flat or [n, width]) and whose segments are in `data` (bytes, or a
+    c_char_p to them): block i goes to address bases[i] + 4 * offsets[i]
+    (`bases` may be one address), its rows strides[i] int32 apart. Raises
+    the decoder's ValueError for the first block it refused. Returns the CPU
+    time (ns) of the worker threads it started where `count_cpu`, else 0."""
+    entry, width = _ENTRIES[kind]
+    meta = np.ascontiguousarray(np.asarray(meta, np.int32).reshape(-1, width))
+    n = len(meta)
+    addrs = (np.asarray(bases, np.uint64)
+             + (np.asarray(offsets, np.int64) * 4).astype(np.uint64))
+    strides = np.ascontiguousarray(strides, np.int64)
+    if addrs.shape != (n,) or strides.shape != (n,):
+        raise ValueError(f"J2K {kind} batch: {n} rows, {addrs.shape} "
+                         f"addresses, {strides.shape} strides")
+    if n == 0:
+        return 0
+    rcs = np.zeros(n, np.int32)
+    cpu = np.zeros(1, np.int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    rc = getattr(_native_lib(), entry)(
+        n, data, meta.ctypes.data_as(i32p),
+        addrs.ctypes.data_as(ctypes.POINTER(i32p)),
+        strides.ctypes.data_as(i64p), rcs.ctypes.data_as(i32p), nthreads,
+        cpu.ctypes.data_as(i64p) if count_cpu else None)
+    if rc != 0:
+        i = int(np.nonzero(rcs)[0][0])
+        raise ValueError(f"J2K {kind} block decode failed rc={rcs[i]} "
+                         f"(block {i} of {n})")
+    return int(cpu[0])
+
+
 class BlockTable:
     """The code-blocks of one tile, or of the tiles of a uniform grid, as
     rows for the device decoder (see the module's note)."""
@@ -94,11 +144,13 @@ class BlockTable:
         self._tile = tdata
         self._base = self._put(tdata)
 
-    def add(self, seg, w: int, h: int, band: int, nbps: int, passes: int,
-            style: int, dest: int, stride: int) -> None:
-        """One code-block, as `t1_bridge.BlockBatch.add_t1` takes it, and
-        where its [h, w] coefficients go in the flat buffer: element `dest`,
-        rows `stride` apart."""
+    def add(self, block, dest) -> None:
+        """One code-block as the host Tier-1 takes it, (seg, w, h, band,
+        nbps, passes, style, y, x), and `dest`, (plane, stride): its [h, w]
+        coefficients go to the flat buffer from element plane + y * stride
+        + x, rows `stride` apart."""
+        seg, w, h, band, nbps, passes, style, y, x = block
+        plane, stride = dest
         ok = (1 <= w <= 4096 and 1 <= h <= 4096 and 0 <= nbps <= 31
               and passes >= 0 and stride >= w)
         if type(seg) is tuple:
@@ -114,8 +166,8 @@ class BlockTable:
             ok = _blob_ok(blob)
         if not ok:
             self._bad.append(len(self))
-        self._rows += (off, sl, w, h, band | (style << 8), nbps, passes,
-                       stride, dest)
+        self._rows += t1_row(off, sl, w, h, band, nbps, passes, style)
+        self._rows += (stride, plane + y * stride + x)
 
     def rows(self) -> np.ndarray:
         """[n, ROW - 1] int64, in the order added: a row's fields with the
@@ -165,27 +217,13 @@ def decode_codeblocks_plain(buf: torch.Tensor, layout: Layout,
     """The native host decoder on the rows of a staged CPU buffer, into
     the CPU int32 buffer `out`."""
     n = layout.rows
-    if n == 0:
-        return
-    v = buf.numpy()
-    t = v[:n * ROW * 4].view(np.int32).reshape(n, ROW)
-    meta = np.ascontiguousarray(t[:, :7])
-    strides = t[:, 7].astype(np.int64)
-    dest = (t[:, 8].view(np.uint32).astype(np.int64)
-            | (t[:, 9].astype(np.int64) << 32))
-    addrs = np.uint64(out.data_ptr()) + (dest * 4).astype(np.uint64)
-    rcs = np.zeros(n, np.int32)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    rc = _native_lib().tic_t1_decode_batch_into(
-        n, ctypes.cast(buf.data_ptr() + layout.data_start, ctypes.c_char_p),
-        meta.ctypes.data_as(i32p),
-        addrs.ctypes.data_as(ctypes.POINTER(i32p)),
-        strides.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        rcs.ctypes.data_as(i32p), os.cpu_count() or 1, None)
-    if rc != 0:
-        i = int(np.nonzero(rcs)[0][0])
-        raise ValueError(f"J2K T1 block decode failed rc={rcs[i]} "
-                         f"(block {i} of {n})")
+    t = buf.numpy()[:n * ROW * 4].view(np.int32).reshape(n, ROW)
+    dest = (t[:, META + 1].view(np.uint32).astype(np.int64)
+            | (t[:, META + 2].astype(np.int64) << 32))
+    decode_batch_into(
+        "T1", ctypes.cast(buf.data_ptr() + layout.data_start,
+                          ctypes.c_char_p),
+        t[:, :META], out.data_ptr(), dest, t[:, META], os.cpu_count() or 1)
 
 
 def decode_codeblocks(buf: torch.Tensor, layout: Layout,

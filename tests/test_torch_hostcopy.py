@@ -548,8 +548,7 @@ def test_j2k_native_entries_are_declared():
     L = native.lib()
     for sym in ("tic_j2k_t1_decode", "tic_j2k_t1_encode",
                 "tic_ht_decode_block", "tic_ht_encode_block",
-                "tic_t1_decode_batch", "tic_t1_decode_batch_into",
-                "tic_ht_decode_batch", "tic_ht_decode_batch_into",
+                "tic_t1_decode_batch_into", "tic_ht_decode_batch_into",
                 "tic_t1_encode_batch_addr", "tic_ht_encode_batch_addr",
                 "tic_idwt53", "tic_fdwt53", "tic_j2k_rct_shift_u8",
                 "tic_j2k_shift_u8", "tic_t2_create", "tic_t2_free",

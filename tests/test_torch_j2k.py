@@ -36,6 +36,7 @@ from nvimagecodec_tpu_torch.codecs.jpeg2000.codestream import (
     unwrap_jp2,
 )
 from nvimagecodec_tpu_torch.ops import dwt as port_dwt
+from nvimagecodec_tpu_torch.parallel.mesh import make_mesh
 from util import make_photo, psnr
 
 CPU = torch.device("cpu")
@@ -907,6 +908,68 @@ def _without_tile_part(cs: bytes, tile: int) -> bytes:
             out += cs[p:p + psot]
         p += psot
     return bytes(out + cs[p:])
+
+
+# ---------------------------------------------------------------- the plan
+def _port_stream(name):
+    maker, kw = ENCODES[name]
+    return port_core.encode_j2k(maker(), **kw)
+
+
+# case -> (stream, plan_stream keywords, pixel route, Tier-1 site on the
+# CPU, Tier-1 site on a CUDA device)
+PLANS = {
+    "one_tile": (lambda: _port_stream("reversible"), {}, "device_tile",
+                 "native_into", "card_table"),
+    "uniform_grid": (lambda: _port_stream("tiled_uniform"), {},
+                     "device_grid", "native_into", "card_table"),
+    "grid_missing_tile": (lambda: _without_tile_part(port_core.encode_j2k(
+        _photo(64, 64, seed=8), reversible=True, levels=2, tile_size=16,
+        stream_type="j2k"), 5), {}, "device_grid", "native_into",
+        "card_table"),
+    "odd_band_geometry": (lambda: port_core.encode_j2k(
+        _photo(80, 120, 6), levels=4, tile_size=40), {}, "host",
+        "native_into", "native_into"),
+    "irreversible": (lambda: _port_stream("irreversible_q80"), {},
+                     "device_tile", "native_blocks", "native_blocks"),
+    "ht": (lambda: _port_stream("ht"), {}, "device_tile", "native_into",
+           "native_into"),
+    "rgn": (lambda: _port_stream("roi_maxshift"), {}, "device_tile",
+            "native_into", "native_into"),
+    "subsampled": (lambda: _port_stream("subsampled_planar"), {}, "host",
+                   "native_into", "native_into"),
+    "signed": (lambda: _port_stream("signed_int16"), {}, "host",
+               "native_into", "native_into"),
+    "region": (lambda: _port_stream("reversible"),
+               {"region": port.Region(17, 23, 70, 101)}, "host",
+               "native_into", "native_into"),
+    "discard": (lambda: _port_stream("reversible"), {"discard_levels": 1},
+                "host", "native_into", "native_into"),
+    "coc": (lambda: _port_stream("per_comp"), {}, "host", "native_into",
+            "native_into"),
+    "mesh": (lambda: _port_stream("reversible"), {"mesh": True},
+             "device_tile", "native_into", "native_into"),
+}
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("case", sorted(PLANS))
+def test_stream_plan(case, device):
+    """The pixel route and the Tier-1 site `plan_stream` decides from the
+    main header, on the CPU and on a CUDA-named device (the plan needs no
+    card): the routes the decode takes (ROUTES above) and, on a CUDA
+    device, the card's Tier-1 wherever `tier1_on_device` holds."""
+    make, kw, pixels, on_cpu, on_cuda = PLANS[case]
+    kw = dict(kw)
+    if kw.get("mesh"):
+        kw["mesh"] = make_mesh(dp=1, sp=2, devices=[CPU] * 2)
+    plan = port_core.plan_stream(unwrap_jp2(make()), torch.device(device),
+                                 **kw)
+    assert (plan.pixels, plan.tier1) == (
+        pixels, on_cpu if device == "cpu" else on_cuda)
+    # no device named: the host route, with the host Tier-1
+    host = port_core.plan_stream(unwrap_jp2(make()), None, **kw)
+    assert (host.pixels, host.tier1) == ("host", on_cpu)
 
 
 @pytest.mark.parametrize("tile", [0, 5, 15])

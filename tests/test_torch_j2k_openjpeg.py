@@ -85,6 +85,24 @@ def test_tier1_subbands_equal_the_reference_transform(name):
                     ref.analyse_image(px, j2k_streams.LEVELS))
 
 
+@pytest.mark.parametrize("site", ["card_table", "native_into",
+                                  "native_blocks"])
+def test_tier1_sites_agree(site, monkeypatch):
+    """Each Tier-1 site, forced on the device route of the same OpenJPEG
+    stream, leaves the same subbands: the reference's analysis of the
+    source (the card's table decoded on the CPU by its plain version)."""
+    px, data = _stream("96x80")
+    real = core.plan_stream
+    monkeypatch.setattr(core, "plan_stream", lambda *a, **k: real(
+        *a, **k)._replace(tier1=site))
+    job = core._decode_host_stages(data, 0, torch.device("cpu"), 0, None,
+                                   False)
+    # the card's table goes through its plain version on the CPU
+    assert (job.stage.t1 is not None) == (site == "card_table")
+    _equal_subbands(job.stage.upload(torch.device("cpu")),
+                    ref.analyse_image(px, j2k_streams.LEVELS))
+
+
 @pytest.mark.parametrize("options", ["", FORCED])
 def test_decoder_through_two_batches_in_flight_gives_the_source(options):
     """`Decoder(device="cpu")` under `decode_batches(depth=2)`, batches of

@@ -117,27 +117,28 @@ def test_table_rows_are_the_native_batch_rows_and_addresses(kind,
                                                             monkeypatch):
     """Decoding a tile, the table holds the native batch decoder's row of
     every block (segment, w, h, band | style, bit-planes, passes) and, as
-    its destination, the address BlockBatch._run_into computes for it (as
-    an offset into the flat buffer) with its row stride."""
+    its destination, the address the host Tier-1's BlockBatch decodes it
+    to (as an offset into the flat buffer) with its row stride."""
     px = make_photo(128, 192, seed=7)
     data = _stream(kind, px)
     # the host route: every tile's batch and destinations
     batches = []
     real_run_into = BlockBatch.run_into
 
-    def spy(self, dests, nthreads=0):
-        batches.append((self, list(dests)))
-        return real_run_into(self, dests, nthreads)
+    def spy(self, nthreads=0):
+        batches.append(self)
+        return real_run_into(self, nthreads)
 
     monkeypatch.setattr(BlockBatch, "run_into", spy)
     job = core._decode_host_stages(data, 0, CPU, 0, None, False)
     base = job.stage.flat.data_ptr()
     want_rows = []
-    for batch, dests in batches:
-        meta = np.asarray(batch._t1_meta, np.int64).reshape(-1, 8)[:, :7]
-        for m, (arr, r, c) in zip(meta, dests):
-            addr = arr.ctypes.data + (r * arr.shape[1] + c) * 4
-            want_rows.append((m, arr.shape[1], (addr - base) // 4))
+    for batch in batches:
+        meta = np.asarray(batch._meta["T1"], np.int64).reshape(
+            -1, j2k_t1.META)
+        dests = np.asarray(batch._dest["T1"], np.int64).reshape(-1, 3)
+        for m, (addr, off, stride) in zip(meta, dests):
+            want_rows.append((m, stride, (addr + off * 4 - base) // 4))
     # the device route's table
     _on_card_rule(monkeypatch)
     tables = []
@@ -173,9 +174,9 @@ def test_table_rows_are_the_native_batch_rows_and_addresses(kind,
 def test_staged_buffer_holds_the_table_longest_first_then_the_data():
     t = j2k_t1.BlockTable()
     t.add_tile(b"abcdefgh")
-    t.add((2, 3), 4, 4, 1, 5, 13, 0, 0, 4)
-    t.add(b"XYZW!", 64, 64, 3, 9, 25, 0, (1 << 33) + 5, 64)
-    t.add((0, 1), 1, 1, 0, 1, 1, 0, 16, 1)
+    t.add(((2, 3), 4, 4, 1, 5, 13, 0, 0, 0), (0, 4))
+    t.add((b"XYZW!", 64, 64, 3, 9, 25, 0, 0, 0), ((1 << 33) + 5, 64))
+    t.add(((0, 1), 1, 1, 0, 1, 1, 0, 0, 0), (16, 1))
     assert t.end_tile() == 3
     buf, lay = t.staged()
     assert lay.rows == 3 and lay.data_start % 16 == 0
@@ -213,26 +214,27 @@ def test_malformed_rows_raise_the_native_decoders_message(kw, seg):
     good = b"\x12\x34\x56"
     t = j2k_t1.BlockTable()
     t.add_tile(good)
-    t.add((0, 3), 8, 8, 0, 4, 10, 0, 0, 8)
-    t.add(seg, args["w"], args["h"], args["band"], args["nbps"],
-          args["passes"], args["style"], 64, max(8, args["w"]))
+    first = ((0, 3), 8, 8, 0, 4, 10, 0)
+    block = (seg, args["w"], args["h"], args["band"], args["nbps"],
+             args["passes"], args["style"])
+    t.add(first + (0, 0), (0, 8))
+    t.add(block + (0, 0), (64, max(8, args["w"])))
     with pytest.raises(ValueError) as got:
         t.end_tile()
     assert str(got.value) == "J2K T1 block decode failed rc=1 (block 1 of 2)"
     b = BlockBatch(base=good)
-    b.add_t1(0, (0, 3), 8, 8, 0, 4, 10)
-    b.add_t1(1, seg, args["w"], args["h"], args["band"], args["nbps"],
-             args["passes"], style=args["style"])
     out = np.zeros((64, 64), np.int32)
+    b.add_t1(first + (0, 0), (out.ctypes.data, 64))
+    b.add_t1(block + (8, 0), (out.ctypes.data, 64))
     with pytest.raises(ValueError) as host:
-        b.run_into([(out, 0, 0), (out, 8, 0)], 1)
+        b.run_into(1)
     assert str(host.value) == str(got.value)
 
 
 def test_segment_outside_its_tile_raises():
     t = j2k_t1.BlockTable()
     t.add_tile(b"\x00" * 10)
-    t.add((8, 3), 4, 4, 0, 3, 7, 0, 0, 4)
+    t.add(((8, 3), 4, 4, 0, 3, 7, 0, 0, 0), (0, 4))
     with pytest.raises(ValueError, match=r"rc=1 \(block 0 of 1\)"):
         t.end_tile()
 
@@ -338,14 +340,14 @@ def _synthetic_table(styles, seed, edge_rows=True):
             ends = res[3]
             lens = [e - p for p, e in zip([0] + ends[:-1], ends)]
             data = _blob(lens, data)
-        t.add(data, w, h, band, nbps, npasses, sty, total, w)
+        t.add((data, w, h, band, nbps, npasses, sty, 0, 0), (total, w))
         total += w * h
     if edge_rows:
         for seg, nbps, passes, sty in (
                 (b"", 6, 16, 0), (b"\x55", 3, 0, 0),
                 (rng.integers(0, 256, 600, np.uint8).tobytes(), 31, 91, 0),
                 (_blob([0, 2], b"\xff\x7f"), 5, 13, 0x04)):
-            t.add(seg, 32, 32, 3, nbps, passes, sty, total, 32)
+            t.add((seg, 32, 32, 3, nbps, passes, sty, 0, 0), (total, 32))
             total += 32 * 32
     t.end_tile()
     return t, total

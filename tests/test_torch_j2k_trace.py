@@ -17,8 +17,8 @@ import nvimagecodec_tpu_torch as port  # noqa: E402
 from benchmark import j2k_streams  # noqa: E402
 from benchmark.reference import j2k as ref  # noqa: E402
 from nvimagecodec_tpu_torch.codecs.jpeg2000 import core  # noqa: E402
-from nvimagecodec_tpu_torch.codecs.jpeg2000 import t1_bridge  # noqa: E402
 from nvimagecodec_tpu_torch.core import trace  # noqa: E402
+from nvimagecodec_tpu_torch.ops import j2k_t1  # noqa: E402
 from util import make_photo  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -116,16 +116,16 @@ def test_native_workers_cpu_is_charged_to_tier1():
 
 def test_nothing_is_counted_or_measured_with_collection_off(monkeypatch):
     asked = []
-    real = t1_bridge._worker_cpu
+    real = j2k_t1.decode_batch_into
 
-    def spy():
-        out = real()
-        asked.append(out)
-        return out
+    def spy(*args, **kw):
+        asked.append(kw["count_cpu"])
+        return real(*args, **kw)
 
-    monkeypatch.setattr(t1_bridge, "_worker_cpu", spy)
+    monkeypatch.setattr(j2k_t1, "decode_batch_into", spy)
     _px, data = _stream()
     core.decode_j2k(data, num_threads=4, device=CPU)
-    assert asked and all(a == (None, None) for a in asked)
+    # the native workers are given no clock to read
+    assert asked and not any(asked)
     got = _collected(lambda: None)
     assert got["counters"] == {} and got["events"] == []
