@@ -47,7 +47,6 @@ from .codestream import (
     SOT,
     Band,
     CodingParams,
-    HeaderBitReader,
     Resolution,
     SizInfo,
     build_resolutions,
@@ -72,10 +71,11 @@ from .codestream import write_cap
 from .codestream import RGN
 from .codestream import _seg as _marker_seg
 from ...native import lib as _native_lib
-from .t1_bridge import (BlockBatch, EncodeBatch, fdwt53, ht_decode,
+from .t1_bridge import (EncodeBatch, decode_rows_into, fdwt53, ht_decode,
                         ht_encode, idwt53, t1_decode, t1_encode)
-from .t2 import (PacketDecoder, PacketEncoder, plan_layers, plan_layers_ht,
-                 plan_layers_seg, seg_pass_groups)
+from .t2 import (PacketDecoder, PacketEncoder, TileLayout, plan_layers,
+                 plan_layers_ht, plan_layers_seg, seg_pass_groups,
+                 tile_layout)
 
 _PROG_LRCP, _PROG_RLCP, _PROG_RPCL, _PROG_PCRL, _PROG_CPRL = range(5)
 _PROG_NAMES = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
@@ -664,12 +664,6 @@ def encode_j2k(
 
 
 # ------------------------------------------------------------------ decode
-def _seg_bytes(tdata: bytes, s):
-    """Materialize one codeword segment: (off, len) ranges reference the
-    tile data (the zero-copy representation read_packet produces)."""
-    return tdata[s[0]:s[0] + s[1]] if type(s) is tuple else s
-
-
 _PLANE_POOL = [None]
 _PLANE_POOL_LOCK = threading.Lock()
 
@@ -790,7 +784,10 @@ class _SubbandStage:
         """Element offset in the flat buffer of leaf i's plane at lead index
         `idx`."""
         h, w = self.shapes[i][-2:]
-        return self.offs[i] + int(np.ravel_multi_index(idx, self.lead)) * h * w
+        flat = 0
+        for k, n in zip(idx, self.lead):
+            flat = flat * n + k
+        return self.offs[i] + flat * h * w
 
     def host_tensors(self):
         """(LL, bands finest-first) as CPU tensor views of the host buffer
@@ -1077,6 +1074,9 @@ class StreamPlan(NamedTuple):
     device: Optional[torch.device]
     pixels: str  # "host", "device_tile" or "device_grid"
     tier1: str  # "card_table", "native_into" or "native_blocks"
+    # the main header, which with a tile's index and POC fixes the tile's
+    # Tier-2 layout (None with PPM: it holds every packet header)
+    header: Optional[bytes]
 
 
 def plan_stream(cs: bytes, device, discard_levels: int = 0, region=None,
@@ -1162,7 +1162,8 @@ def plan_stream(cs: bytes, device, discard_levels: int = 0, region=None,
         tier1 = "native_into" if reversible else "native_blocks"
     return StreamPlan(pos, siz, cp, ccs, sub, subsampled, signed,
                       reversible, depth, dtype, discard, out_shape, roi,
-                      post_crop, device, pixels, tier1)
+                      post_crop, device, pixels, tier1,
+                      cs[:pos] if cp.ppm is None else None)
 
 
 class _Tile(NamedTuple):
@@ -1226,36 +1227,40 @@ def _subband_stage(plan: StreamPlan, tile: _Tile) -> _SubbandStage:
 
 
 # -------------------------------------------------------- Tier-2 to Tier-1
+# Tier-2 layouts (t2.TileLayout) of the tiles decoded lately, by (main
+# header, tile index, tile-part POC): a store of images written alike
+# decodes every one with the same layout
+_LAYOUTS: Dict[tuple, TileLayout] = {}
+
+
 def _tier2(plan: StreamPlan, tile: _Tile, tdata: bytes, ppt) -> PacketDecoder:
     """The tile's packet headers in progression order, from the tile data
     or, with PPT/PPM, from the packed headers: each code-block's passes and
     codeword segments."""
-    pdec = PacketDecoder(plan.siz, plan.cp, tile.resolutions)
-    packets = progression_iter(tile.cp, tile.resolutions, plan.siz.ncomp,
-                               tile.rect[0], tile.rect[1], sub=plan.sub)
-    if ppt is not None:
-        br = HeaderBitReader(ppt, 0)
-        body_pos = ctypes.c_int64(0)
-        for l, r, c, p in packets:
-            if br.pos > len(ppt):
-                raise ValueError("J2K: PPT headers exhausted")
-            pdec.read_packet(br, c, r, l, p, body=tdata, body_pos=body_pos)
-    else:
-        br = HeaderBitReader(tdata, 0)
-        for l, r, c, p in packets:
-            if br.pos > len(tdata):
-                raise ValueError("J2K: tile data exhausted mid-packet")
-            pdec.read_packet(br, c, r, l, p)
+    key = (plan.header, tile.index,
+           tuple(tile.cp.poc) if tile.cp.poc else None)
+    layout = _LAYOUTS.get(key) if plan.header is not None else None
+    if layout is None:
+        layout = tile_layout(
+            tile.cp, tile.resolutions,
+            progression_iter(tile.cp, tile.resolutions, plan.siz.ncomp,
+                             tile.rect[0], tile.rect[1], sub=plan.sub))
+        if plan.header is not None:
+            if len(_LAYOUTS) >= 64:
+                _LAYOUTS.clear()
+            _LAYOUTS[key] = layout
+    pdec = PacketDecoder(layout)
+    pdec.read_packets(tdata, ppt)
     return pdec
 
 
-def _tile_codeblocks(plan: StreamPlan, tile: _Tile, pdec: PacketDecoder,
-                     tdata: bytes):
+def _band_specs(plan: StreamPlan, tile: _Tile, pdec: PacketDecoder, sink):
     """Every band of the tile that Tier-1 decodes (QCD order a component,
-    the finest `discard` resolutions left out), as (c, r, bi, band, blocks):
-    `blocks` yields its code-blocks with their segments prepared
-    (`_band_blocks`)."""
+    the finest `discard` resolutions left out), as `PacketDecoder.rows`
+    takes it: its destination from the sink, its Mb, its code-block style
+    and, with a region, the band's share of the region's DWT support."""
     rgn = plan.cp.rgn or {}
+    specs = []
     for c, cc in enumerate(plan.ccs):
         for i, (r, bi) in enumerate(_band_order(cc)):
             if r > cc.levels - plan.discard:
@@ -1264,60 +1269,21 @@ def _tile_codeblocks(plan: StreamPlan, tile: _Tile, pdec: PacketDecoder,
             eps, _mu = cc.band_q[i]
             need = (_roi_needed_rect(r, plan.cp.levels, *plan.roi)
                     if plan.roi is not None else None)
-            yield c, r, bi, band, _band_blocks(
-                pdec.band_cblks(c, r, bi), band,
+            specs.append(pdec.band_spec(
+                c, r, bi, band, sink.band(c, r, bi, band),
                 eps + cc.guard_bits - 1 + rgn.get(c, 0), cc.cblk_style,
-                need, tdata)
-
-
-def _band_blocks(cblks, band: Band, mb: int, style: int, need, tdata):
-    """The band's code-blocks with a pass (and, with a region, within its
-    DWT support `need`), as the native decoders take them, at row y, column
-    x of the band. An HT (T.814) block is (cup, ref, passes, w, h, B, Ucap,
-    y, x): its cleanup segment and its refinement segments joined. A part-1
-    block is (seg, w, h, band type, bit-planes, passes, style, y, x): its
-    one segment, its segments joined, or, with TERMALL/BYPASS, the blob the
-    native decoder parses, [i32 count][i32 lengths][the segments]. A
-    segment is an (off, len) range of the tile data (zero-copy) or bytes."""
-    ht = style & 0x40
-    style &= 0x2F
-    for cb in cblks:
-        if not cb.included or cb.num_passes == 0:
-            continue
-        if need is not None and (
-            cb.y1 <= need[0] or cb.x1 <= need[1]
-            or cb.y0 >= need[2] or cb.x0 >= need[3]
-        ):
-            continue
-        segs = cb.segments
-        if ht:
-            if len(segs) <= 2:
-                ref = segs[1] if len(segs) == 2 else b""
-            else:
-                ref = b"".join(_seg_bytes(tdata, x) for x in segs[1:])
-            yield (segs[0] if segs else b"", ref, cb.num_passes,
-                   cb.x1 - cb.x0, cb.y1 - cb.y0, mb - cb.zero_bps,
-                   cb.zero_bps + 1, cb.y0 - band.y0, cb.x0 - band.x0)
-            continue
-        if style & 0x05:
-            parts = [_seg_bytes(tdata, x) for x in segs] or [b""]
-            seg = (struct.pack(f"<{1 + len(parts)}i", len(parts),
-                               *[len(x) for x in parts]) + b"".join(parts))
-        elif len(segs) == 1:
-            seg = segs[0]
-        else:
-            seg = b"".join(_seg_bytes(tdata, x) for x in segs)
-        yield (seg, cb.x1 - cb.x0, cb.y1 - cb.y0, band.btype,
-               max(0, mb - cb.zero_bps), cb.num_passes, style,
-               cb.y0 - band.y0, cb.x0 - band.x0)
+                need))
+    return specs
 
 
 # ------------------------------------------------------------ Tier-1 sinks
 # A sink takes one tile's code-blocks: `band(c, r, bi, band)` gives the
-# band's destination, `add(block, dest)` takes a block of it, and `finish()`
-# decodes (or, on the card, checks) them and returns (blocks, CPU ns of its
-# native workers). `planes[c][(r, bi)]` are the decoded planes the host
-# pixel stage reads.
+# band's destination, (element offset of its plane, row stride), `base` is
+# where the tile's data starts in the data the rows count from, and
+# `finish(rows, tdata)` decodes (or, on the card, checks and keeps) the
+# tile's rows (`t2.TileRows`) and returns (blocks, CPU ns of its native
+# workers). `planes[c][(r, bi)]` are the decoded planes the host pixel
+# stage reads.
 def _rgn_unshift(a: np.ndarray, s: int) -> np.ndarray:
     """Maxshift decode (T.800 H.2): coefficients whose magnitude reaches
     the shifted planes are ROI; scale them back down."""
@@ -1327,15 +1293,15 @@ def _rgn_unshift(a: np.ndarray, s: int) -> np.ndarray:
 
 
 class _CardTable:
-    """Tier-1 on the card: each block a row of the stage's code-block table
-    (checked as it is added), decoded after the upload into the stage's
-    device buffer (_SubbandStage.upload)."""
+    """Tier-1 on the card: the tile's rows and data into the stage's
+    code-block table (checked: a row the native decoder refuses raises
+    here), decoded after the upload into the stage's device buffer
+    (_SubbandStage.upload)."""
     planes = None
 
-    def __init__(self, plan, tile, tdata, stage, num_threads):
+    def __init__(self, plan, tile, stage, num_threads):
         self.plan, self.tile, self.stage = plan, tile, stage
-        stage.t1.add_tile(tdata)
-        self.add = stage.t1.add  # one call a block
+        self.base = stage.t1.size
 
     def band(self, c, r, bi, band):
         """(element offset of the band's plane in the flat buffer, its row
@@ -1343,19 +1309,20 @@ class _CardTable:
         return (self.stage.plane_offset(*_leaf(self.plan, self.tile, c, r,
                                                bi)), band.w)
 
-    def finish(self):
-        return self.stage.t1.end_tile(), 0
+    def finish(self, rows, tdata):
+        return self.stage.t1.add_tile(rows.t1, (tdata, rows.side),
+                                      rows.bad), 0
 
 
 class _NativeInto:
     """The native decoder, one batch a tile, writing each block straight
     into its int32 subband plane (the stage's leaf where the device route
     takes the tile); RGN-shifted planes are scaled back after."""
+    base = 0
 
-    def __init__(self, plan, tile, tdata, stage, num_threads):
+    def __init__(self, plan, tile, stage, num_threads):
         self.plan, self.tile, self.stage = plan, tile, stage
         self.num_threads = num_threads
-        self.batch = BlockBatch(base=tdata)
         self.planes = [{} for _ in plan.ccs]
 
     def _target(self, c, r, bi, band) -> np.ndarray:
@@ -1365,24 +1332,23 @@ class _NativeInto:
         return self.stage.leaves[i][idx]
 
     def band(self, c, r, bi, band):
-        """(address of the band's int32 plane, its row stride); the plane
-        is kept in `planes`, alive until the batch has run."""
+        """(the band's int32 plane as an element offset of memory, its
+        address over 4; its row stride); the plane is kept in `planes`,
+        alive until the batch has run."""
         a = self._target(c, r, bi, band)
-        assert a.dtype == np.int32 and a.flags.c_contiguous
+        assert (a.dtype == np.int32 and a.flags.c_contiguous
+                and a.ctypes.data % 4 == 0)
         self.planes[c][(r, bi)] = a
-        # the band's blocks go straight to the batch: one call a block
-        self.add = (self.batch.add_ht if self.plan.ccs[c].cblk_style & 0x40
-                    else self.batch.add_t1)
-        return a.ctypes.data, a.shape[1]
+        return a.ctypes.data // 4, a.shape[1]
 
-    def finish(self):
-        self.batch.run_into(self.num_threads)
+    def finish(self, rows, tdata):
+        cpu_ns = decode_rows_into(rows, tdata, self.num_threads)
         rgn = self.plan.cp.rgn or {}
         for c, planes in enumerate(self.planes):
             if rgn.get(c, 0):
                 for a in planes.values():
                     a[...] = _rgn_unshift(a, rgn[c])
-        return len(self.batch), self.batch.worker_cpu_ns
+        return len(rows.t1) + len(rows.ht), cpu_ns
 
 
 class _NativeBlocks(_NativeInto):
@@ -1394,8 +1360,8 @@ class _NativeBlocks(_NativeInto):
     def _target(self, c, r, bi, band) -> np.ndarray:
         return np.zeros((band.h, band.w), np.int32)
 
-    def finish(self):
-        n, cpu_ns = super().finish()
+    def finish(self, rows, tdata):
+        n, cpu_ns = super().finish(rows, tdata)
         for c, planes in enumerate(self.planes):
             cc = self.plan.ccs[c]
             order = _band_order(cc)
@@ -1420,16 +1386,15 @@ _SINKS = {"card_table": _CardTable, "native_into": _NativeInto,
 
 def _tier1(plan: StreamPlan, tile: _Tile, pdec: PacketDecoder, tdata: bytes,
            stage: Optional[_SubbandStage], num_threads: int):
-    """Tier-1 of every code-block of the tile through the plan's sink, and
-    its counters; returns the sink's decoded planes (None on the card)."""
-    sink = _SINKS[plan.tier1](plan, tile, tdata, stage, num_threads)
-    for c, r, bi, band, blocks in _tile_codeblocks(plan, tile, pdec, tdata):
-        dest = sink.band(c, r, bi, band)
-        add = sink.add
-        for block in blocks:
-            add(block, dest)
-    n, cpu_ns = sink.finish()
+    """Tier-1 of every code-block of the tile through the plan's sink: the
+    rows of the tile's code-blocks, written in one native pass, and its
+    counters; returns the sink's decoded planes (None on the card)."""
+    sink = _SINKS[plan.tier1](plan, tile, stage, num_threads)
+    rows = pdec.rows(_band_specs(plan, tile, pdec, sink), tdata, sink.base)
+    n, cpu_ns = sink.finish(rows, tdata)
     add_count("imgcodec.jpeg2k.codeblocks", n)
+    add_count("imgcodec.jpeg2k.codeblocks_native_rows",
+              len(rows.t1) + len(rows.ht))
     if plan.tier1 == "card_table":
         add_count("imgcodec.jpeg2k.codeblocks_device", n)
     charge_ns("imgcodec.jpeg2k.t1", cpu_ns)

@@ -98,83 +98,38 @@ def ht_encode(coefs: np.ndarray,
             B.value, umax.value)
 
 
-class BlockBatch:
-    """Accumulates code-block decode jobs for one tile and runs them all
-    in ONE native call a kind (native/j2k_block_batch.cpp) with internal
-    work-stealing threads, each block written straight into its subband
-    plane — replacing ~O(blocks) ctypes calls + Python futures whose
-    overhead dominated block decode (the host analog of nvjpeg2k's
-    whole-tile batching, extensions/nvjpeg2k/cuda_decoder.cpp:601-640).
-    After a run, `worker_cpu_ns` is the CPU time of the native threads it
-    started (the calling thread's not included), measured only while spans
-    are collected (0 otherwise)."""
-
-    def __init__(self, base: bytes = b""):
-        # segments are usually (off, len) ranges into `base` (the tile
-        # data) — zero-copy; synthesized byte segments land in an overflow
-        # area appended after it
-        self._base = base
-        self._extra = bytearray()
-        self._meta = {"HT": [], "T1": []}  # rows a kind, flat
-        self._dest = {"HT": [], "T1": []}  # (address, offset, stride) a block
-        self.worker_cpu_ns = 0
-
-    def _put(self, seg) -> Tuple[int, int]:
-        if type(seg) is tuple:
-            return seg  # range into base
-        off = len(self._base) + len(self._extra)
-        self._extra += seg
-        return off, len(seg)
-
-    def add_ht(self, block, dest) -> None:
-        """An HT block, (cup, ref, passes, w, h, B, Ucap, y, x), to `dest`:
-        (address, stride) of its int32 subband plane, the block at row y,
-        column x."""
-        cup, ref, passes, w, h, B, ucap, y, x = block
-        co, cl = self._put(cup)
-        ro, rl = self._put(ref or b"")
-        self._meta["HT"] += (co, cl, ro, rl, passes, w, h, B, ucap)
-        addr, stride = dest
-        self._dest["HT"] += (addr, y * stride + x, stride)
-
-    def add_t1(self, block, dest) -> None:
-        """A part-1 block, (seg, w, h, band, nbps, passes, style, y, x), to
-        `dest` as `add_ht` takes it."""
-        seg, w, h, band, nbps, passes, style, y, x = block
-        so, sl = self._put(seg)
-        self._meta["T1"] += j2k_t1.t1_row(so, sl, w, h, band, nbps, passes,
-                                          style)
-        addr, stride = dest
-        self._dest["T1"] += (addr, y * stride + x, stride)
-
-    def _blob_bytes(self) -> bytes:
-        if not self._extra:
-            return self._base  # zero-copy common case
-        return bytes(self._base) + bytes(self._extra)
-
-    def run_into(self, nthreads: int = 0) -> None:
-        """Decodes every block into its plane (HT blocks, then part-1); the
-        planes must outlive the call."""
-        blob = self._blob_bytes()
-        with _ThreadBudget() as fair:
-            for kind in ("HT", "T1"):
-                if not self._meta[kind]:
-                    continue
-                d = np.asarray(self._dest[kind], np.int64).reshape(-1, 3)
-                self.worker_cpu_ns += j2k_t1.decode_batch_into(
-                    kind, blob, self._meta[kind], d[:, 0], d[:, 1], d[:, 2],
-                    nthreads if nthreads > 0 else fair,
+def decode_rows_into(rows, tdata: bytes, nthreads: int = 0) -> int:
+    """Decodes every block of a tile's rows (`t2.TileRows`, segment offsets
+    counting from `tdata`, its side area after it) in ONE native call a
+    kind (native/j2k_block_batch.cpp) with internal work-stealing threads,
+    HT blocks first, each block written straight into its subband plane
+    (a row's destination is an element offset of memory: the address over
+    4); the planes must outlive the call. This replaces ~O(blocks) ctypes
+    calls and Python futures (the host analog of nvjpeg2k's whole-tile
+    batching, extensions/nvjpeg2k/cuda_decoder.cpp:601-640). Returns the
+    CPU time (ns) of the native threads it started (the calling thread's
+    not included), measured only while spans are collected (0
+    otherwise)."""
+    data = (tdata if not len(rows.side)
+            else bytes(tdata) + rows.side.tobytes())
+    cpu_ns = 0
+    with _ThreadBudget() as fair:
+        for kind, r, width in (("HT", rows.ht, 9),
+                               ("T1", rows.t1, j2k_t1.META)):
+            if len(r):
+                cpu_ns += j2k_t1.decode_batch_into(
+                    kind, data, r[:, :width], 0,
+                    j2k_t1.row_dest(r[:, width + 1], r[:, width + 2]),
+                    r[:, width], nthreads if nthreads > 0 else fair,
                     count_cpu=collecting())
-
-    def __len__(self) -> int:
-        return sum(len(d) for d in self._dest.values()) // 3
+    return cpu_ns
 
 
 class EncodeBatch:
-    """Encode-side twin of BlockBatch: every code-block of a tile in one
-    native call (tic_t1_encode_batch / tic_ht_encode_batch) with internal
-    work-stealing threads. All-zero HT blocks are skipped here (they stay
-    not-included, like the EBCOT path)."""
+    """Encode-side twin of decode_rows_into: every code-block of a tile in
+    one native call (tic_t1_encode_batch / tic_ht_encode_batch) with
+    internal work-stealing threads. All-zero HT blocks are skipped here
+    (they stay not-included, like the EBCOT path)."""
 
     def __init__(self, ht: bool, ht_passes: int = 1):
         self.ht = ht

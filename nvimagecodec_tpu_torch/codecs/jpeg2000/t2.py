@@ -9,44 +9,34 @@ internally; written from the spec).
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Tuple
+
+import numpy as np
 
 from .codestream import (
+    Band,
     CodingParams,
-    HeaderBitReader,
     HeaderBitWriter,
     Resolution,
-    SizInfo,
     cblk_grid_precinct,
     precinct_count,
     precinct_rect,
 )
+from ...ops.j2k_t1 import ROW
 from .tagtree import TagTree
 
 
 @dataclass
-class CblkState:
-    """Accumulated decode state of one code-block across layers."""
-
-    x0: int
-    y0: int
-    x1: int
-    y1: int
-    included: bool = False
-    zero_bps: int = 0
-    num_passes: int = 0
-    lblock: int = 3
-    segments: List[bytes] = field(default_factory=list)
-
-
-@dataclass
 class PrecinctState:
+    """The encoder's state of one precinct-band: its tag trees and its
+    code-blocks' rectangles (x0, y0, x1, y1), raster order."""
     incl: TagTree
     zbp: TagTree
     nx: int
     ny: int
-    cblks: List[CblkState] = field(default_factory=list)
+    cblks: List[Tuple[int, int, int, int]] = field(default_factory=list)
 
 
 def _npasses_write(bw: HeaderBitWriter, n: int) -> None:
@@ -63,20 +53,6 @@ def _npasses_write(bw: HeaderBitWriter, n: int) -> None:
     else:
         bw.put_bits(0b111111111, 9)
         bw.put_bits(n - 37, 7)
-
-
-def _npasses_read(br: HeaderBitReader) -> int:
-    if not br.get_bit():
-        return 1
-    if not br.get_bit():
-        return 2
-    v = br.get_bits(2)
-    if v < 3:
-        return 3 + v
-    v = br.get_bits(5)
-    if v < 31:
-        return 6 + v
-    return 37 + br.get_bits(7)
 
 
 def _floor_log2(n: int) -> int:
@@ -98,18 +74,83 @@ def _build_precinct_states(cp: CodingParams, res: Resolution):
                 TagTree(max(nx, 1), max(ny, 1)),
                 TagTree(max(nx, 1), max(ny, 1)),
                 nx, ny,
-                [CblkState(*b) for b in blocks],
+                blocks,
             )
     return npx * npy, out
 
 
+class TileRows(NamedTuple):
+    """The rows of a tile's code-blocks, as `PacketDecoder.rows` writes
+    them (native/j2k_t2.cpp tic_t2_rows): `t1`, [n, ops/j2k_t1.ROW] int32 a
+    part-1 block; `ht`, [n, 12] int32 an HT block (the native HT batch
+    decoder's row, then the stride and the destination's element offset,
+    low and high 32 bits); `side`, the segments a row does not read in
+    place in the tile data (joined, or TERMALL/BYPASS blobs), which follow
+    the tile data in the rows' data; `bad`, the first part-1 row the
+    native decoder would refuse (-1 none)."""
+    t1: np.ndarray
+    ht: np.ndarray
+    side: np.ndarray
+    bad: int
+
+
+# int64 a band of `PacketDecoder.rows`'s specs (native/j2k_t2.cpp)
+_SPEC = 16
+
+
+class TileLayout(NamedTuple):
+    """A tile's geometry and packet order as Tier-2's native reader takes
+    them (native/j2k_t2.cpp): `geom`, 22 int32 a resolution
+    (tic_t2_add_resolutions); `res`, (c, r) -> (its precincts, the id of
+    precinct 0's first band, its bands), the ids of (c, r, p, bi) following
+    in precinct, then band, order; `packets`, 4 int32 a packet in
+    progression order (tic_t2_read_packets); `flags`, SOP markers (1) and
+    EPH markers (2)."""
+    geom: np.ndarray
+    res: Dict[Tuple[int, int], Tuple[int, int, int]]
+    packets: np.ndarray
+    flags: int
+
+
+def tile_layout(cp: CodingParams, resolutions: Dict[int, List[Resolution]],
+                packets) -> TileLayout:
+    """The layout of a tile of `resolutions` (comp -> [Resolution]) coded
+    with `cp`, whose packets (layer, r, c, p) come in the order of
+    `packets`."""
+    geom: List[int] = []
+    res: Dict[Tuple[int, int], Tuple[int, int, int]] = {}
+    first = 0
+    for c, res_list in resolutions.items():
+        ccp = cp.for_comp(c)
+        for rs in res_list:
+            ppx, ppy = ccp.pp(rs.r)
+            npx, npy = precinct_count(rs, ppx, ppy)
+            nb = len(rs.bands)
+            res[(c, rs.r)] = (npx * npy, first, nb)
+            first += npx * npy * nb
+            geom += (rs.x0, rs.y0, rs.x1, rs.y1, rs.r, ppx, ppy, ccp.cblk_w,
+                     ccp.cblk_h, nb)
+            for band in rs.bands:
+                geom += (band.x0, band.y0, band.x1, band.y1)
+            geom += (0,) * (12 - 4 * nb)
+    # the style bits the reader takes: 0x40 (HT two-segment rule) and 0x05
+    # (part-1 TERMALL/BYPASS terminations)
+    sty = {c: cp.for_comp(c).cblk_style & 0x45 for c in resolutions}
+    pk: List[int] = []
+    for l, r, c, p in packets:
+        _n, b0, nb = res[(c, r)]
+        pk += (l, b0 + p * nb, nb, sty[c])
+    return TileLayout(np.asarray(geom or [0], np.int32), res,
+                      np.asarray(pk or [0], np.int32),
+                      (1 if cp.sop else 0) | (2 if cp.eph else 0))
+
+
 class PacketDecoder:
-    """Decodes the packet sequence of one tile into per-codeblock segment
-    lists. The bit-level header parse (tag trees, pass counts, Lblock,
-    segment lengths) runs in native code (native/j2k_t2.cpp) with state
-    held per tile in a native context — semantics identical to the
-    commented Python at the top of this file's git history; geometry and
-    the progression iteration stay here."""
+    """Decodes the packet sequence of one tile into a native context
+    (native/j2k_t2.cpp) that holds every code-block's geometry, state and
+    codeword segments (as ranges of the tile data) across layers:
+    `read_packets` reads the tile's packets in one call, and `rows` then
+    writes every code-block's Tier-1 row in one call."""
 
     _ERRORS = {
         -1: "J2K: runaway zero-bitplane tree",
@@ -119,41 +160,14 @@ class PacketDecoder:
         -5: "J2K: packet overflows segment capacity",
     }
 
-    def __init__(self, siz: SizInfo, cp: CodingParams,
-                 resolutions: Dict[int, List[Resolution]]):
-        import ctypes
-
+    def __init__(self, layout: TileLayout):
         from ...native import lib
 
-        self.siz = siz
-        self.cp = cp
-        self.resolutions = resolutions  # comp -> [Resolution]
+        self.layout = layout
         self._L = lib()  # signatures: native._declare_j2k
         self._ctx = ctypes.c_void_p(self._L.tic_t2_create())
-        self._outbuf = None  # reused native length-group buffer
-        self.nprec: Dict[Tuple[int, int], int] = {}
-        # (c, r, p, bi) -> (band_id, [block geometry])
-        self._bands: Dict[Tuple[int, int, int, int], Tuple[int, list]] = {}
-        self._segs: Dict[int, list] = {}   # global cb id -> [bytes]
-        self._cb_base: Dict[int, int] = {}  # band_id -> first global cb id
-        ncb_total = 0
-        for c, res_list in resolutions.items():
-            ccp = cp.for_comp(c)
-            for res in res_list:
-                ppx, ppy = ccp.pp(res.r)
-                npx, npy = precinct_count(res, ppx, ppy)
-                self.nprec[(c, res.r)] = npx * npy
-                for p in range(npx * npy):
-                    prect, _ = precinct_rect(res, ppx, ppy, p)
-                    for bi, band in enumerate(res.bands):
-                        nx, ny, blocks = cblk_grid_precinct(
-                            band, res.r, ppx, ppy, prect,
-                            ccp.cblk_w, ccp.cblk_h)
-                        bid = self._L.tic_t2_add_precband(
-                            self._ctx, nx, ny)
-                        self._bands[(c, res.r, p, bi)] = (bid, blocks)
-                        self._cb_base[bid] = ncb_total
-                        ncb_total += nx * ny
+        self._L.tic_t2_add_resolutions(self._ctx, len(layout.geom) // 22,
+                                       layout.geom.ctypes.data)
 
     def __del__(self):
         try:
@@ -161,112 +175,56 @@ class PacketDecoder:
         except Exception:
             pass
 
-    def band_cblks(self, c: int, r: int, bi: int) -> List[CblkState]:
-        """All code-blocks of one band, concatenated over its precincts."""
-        import ctypes
+    def read_packets(self, tdata: bytes, ppt=None) -> None:
+        """Reads the tile's packets from the tile data or, with PPT/PPM
+        (T.800 A.7.4-5), their headers from the packed headers `ppt` and
+        their codeword segments from the tile data, in one native call.
+        Raises a ValueError for a malformed packet; the context then holds
+        a part-read tile and is done with."""
+        pk = self.layout.packets
+        hdr = tdata if ppt is None else ppt
+        rc = self._L.tic_t2_read_packets(
+            self._ctx, hdr, len(hdr), None if ppt is None else tdata,
+            len(tdata), pk.ctypes.data, len(pk) // 4, self.layout.flags)
+        if rc == -6:
+            raise ValueError("J2K: tile data exhausted mid-packet"
+                             if ppt is None else "J2K: PPT headers exhausted")
+        if rc < 0:
+            raise ValueError(self._ERRORS.get(rc,
+                                              f"J2K: packet parse rc={rc}"))
 
-        import numpy as _np
+    def band_spec(self, c: int, r: int, bi: int, band: Band, dest,
+                  mb: int, style: int, need=None) -> List[int]:
+        """One band of `rows`: its code-blocks of every precinct go to
+        `dest`, (element offset of the band's plane, its row stride), with
+        Mb `mb` and code-block style `style` (HT where 0x40); with `need`,
+        a region (y0, x0, y1, x1) in band coordinates, only blocks that
+        meet it."""
+        plane, stride = dest
+        nprec, first, nb = self.layout.res[(c, r)]
+        return [1 if style & 0x40 else 0, plane, stride, band.btype, mb,
+                style, band.x0, band.y0, need is not None,
+                *(need or (0, 0, 0, 0)), first + bi, nprec, nb]
 
-        out: List[CblkState] = []
-        for p in range(self.nprec.get((c, r), 0)):
-            bid, blocks = self._bands[(c, r, p, bi)]
-            n = len(blocks)
-            if n == 0:
-                continue
-            # fully overwritten by tic_t2_dump: no zeroing needed
-            incl = _np.empty(n, _np.int32)
-            zbps = _np.empty(n, _np.int32)
-            npasses = _np.empty(n, _np.int32)
-            i32p = ctypes.POINTER(ctypes.c_int32)
-            self._L.tic_t2_dump(self._ctx, bid,
-                                incl.ctypes.data_as(i32p),
-                                zbps.ctypes.data_as(i32p),
-                                npasses.ctypes.data_as(i32p))
-            base = self._cb_base[bid]
-            # bulk-convert once: per-element numpy scalar indexing costs
-            # ~10x a list walk at 777 blocks/image
-            incl_l = incl.tolist()
-            zbps_l = zbps.tolist()
-            np_l = npasses.tolist()
-            segs = self._segs
-            for i, b in enumerate(blocks):
-                cb = CblkState(*b)
-                cb.included = bool(incl_l[i])
-                cb.zero_bps = zbps_l[i]
-                cb.num_passes = np_l[i]
-                cb.segments = segs.get(base + i, [])
-                out.append(cb)
-        return out
-
-    def read_packet(self, br: HeaderBitReader, c: int, r: int, layer: int,
-                    p: int = 0, body: bytes = None,
-                    body_pos=None) -> None:
-        """Parse one packet header via the native T2 context.
-
-        On a negative native return this raises and the context must be
-        considered POISONED: tag-tree / code-block inclusion state may be
-        partially mutated while ``br.pos`` is not advanced, so re-calling
-        over the same PacketDecoder would silently resume from corrupted
-        state. Callers abort the whole decode on error (no resync/retry).
-        """
-        import ctypes
-
-        res = self.resolutions[c][r]
-        nb = len(res.bands)
-        entries = [self._bands[(c, r, p, bi)] for bi in range(nb)]
-        band_ids = (ctypes.c_int32 * nb)(*[e[0] for e in entries])
-        # Segment-rule style bits the native reader understands: 0x40 (HT
-        # two-segment rule) and 0x05 (part-1 TERMALL/BYPASS terminations).
-        ht = self.cp.for_comp(c).cblk_style & 0x45
-        # worst case codeword segments per code-block in the precinct:
-        # 2 for HT, one per pass (<= 109 for part-1) under TERMALL/BYPASS
-        per_cb = 110 if (ht & 0x05) else 2
-        cap = 8 + per_cb * sum(len(e[1]) for e in entries)
-        out = self._outbuf
-        if out is None or len(out) < 3 * cap:
-            out = self._outbuf = (ctypes.c_int64 * (3 * cap))()
-        pos = ctypes.c_int64(br.pos)
-        flags = ((1 if self.cp.sop else 0) | (2 if self.cp.eph else 0))
-        if body is None:
-            n = self._L.tic_t2_read_packet(
-                self._ctx, br.data, len(br.data), ctypes.byref(pos),
-                layer, band_ids, nb, ht, out, cap, flags)
-        else:
-            # PPT mode (T.800 A.7.5): header bits from the packed-header
-            # buffer, codeword segments from the tile body stream
-            n = self._L.tic_t2_read_packet_split(
-                self._ctx, br.data, len(br.data), ctypes.byref(pos),
-                layer, band_ids, nb, ht, out, cap, flags,
-                body, len(body), ctypes.byref(body_pos))
-        if n < 0:
-            raise ValueError(self._ERRORS.get(n, f"J2K: packet parse rc={n}"))
-        data = br.data if body is None else body
-        segs = self._segs
-        for i in range(n):
-            cb_id = out[3 * i]
-            # bit 62: this length-field group continues the codeword
-            # segment started in an earlier layer (TERMALL/BYPASS only)
-            cont = cb_id & (1 << 62)
-            cb_id &= (1 << 62) - 1
-            off = out[3 * i + 1]
-            ln = out[3 * i + 2]
-            # segments are stored as (off, len) RANGES into the tile data
-            # (zero-copy: the block batch reads them in place); adjacent
-            # continuations merge, non-adjacent ones materialize to bytes
-            lst = segs.get(cb_id)
-            if cont and lst:
-                prev = lst[-1]
-                if type(prev) is tuple and prev[0] + prev[1] == off:
-                    lst[-1] = (prev[0], prev[1] + ln)
-                else:
-                    pb = (data[prev[0]:prev[0] + prev[1]]
-                          if type(prev) is tuple else prev)
-                    lst[-1] = pb + data[off:off + ln]
-            elif lst is not None:
-                lst.append((off, ln))
-            else:
-                segs[cb_id] = [(off, ln)]
-        br.pos = pos.value
+    def rows(self, specs: List[List[int]], tdata: bytes,
+             base: int = 0) -> TileRows:
+        """Every code-block with a pass of the bands `specs` (`band_spec`),
+        band after band, in one native call: the rows' segment offsets
+        count from a data buffer that holds `tdata` at `base` and the side
+        area right after it."""
+        ncb = self._L.tic_t2_blocks(self._ctx)
+        t1 = np.empty((ncb, ROW), np.int32)
+        ht = np.empty((ncb, 12), np.int32)
+        spec = np.asarray(specs or [[0] * _SPEC], np.int64)
+        out = np.zeros(4, np.int64)
+        self._L.tic_t2_rows(self._ctx, tdata, len(tdata), base,
+                            spec.ctypes.data, len(specs), t1.ctypes.data,
+                            ht.ctypes.data, out.ctypes.data)
+        n1, n2, used, bad = (int(v) for v in out)
+        side = np.empty(used, np.uint8)
+        if used:
+            self._L.tic_t2_side(self._ctx, side.ctypes.data)
+        return TileRows(t1[:n1], ht[:n2], side, bad)
 
 
 @dataclass

@@ -236,12 +236,7 @@ def _declare_j2k(L: ctypes.CDLL) -> None:
         "tic_j2k_rct_shift_u8": [i32p, i32p, i32p, c_i64, u8p],
         "tic_j2k_shift_u8": [i32p, c_i64, c_i32, u8p],
         # Tier-2 packet headers: reader, then writer
-        "tic_t2_add_precband": [vp, c_int, c_int],
-        "tic_t2_read_packet": [vp, cp, c_i64, i64p, c_int, i32p, c_int,
-                               c_int, i64p, c_int, c_int],
-        "tic_t2_read_packet_split": [vp, cp, c_i64, i64p, c_int, i32p, c_int,
-                                     c_int, i64p, c_int, c_int, cp, c_i64,
-                                     i64p],
+        "tic_t2_read_packets": [vp, cp, c_i64, cp, c_i64, vp, c_int, c_int],
         "tic_t2e_add_precband": [vp, c_int, c_int, i32p, i32p],
         "tic_t2e_write_packet": [vp, i32p, c_int, i32p, c_int, i32p, u8p,
                                  c_int],
@@ -256,5 +251,13 @@ def _declare_j2k(L: ctypes.CDLL) -> None:
     for name in ("tic_t2_free", "tic_t2e_free"):
         getattr(L, name).argtypes = [vp]
         getattr(L, name).restype = None
-    L.tic_t2_dump.argtypes = [vp, c_int, i32p, i32p, i32p]
-    L.tic_t2_dump.restype = None
+    # the code-block rows of a tile (arrays passed as addresses)
+    L.tic_t2_add_resolutions.argtypes = [vp, c_int, vp]
+    L.tic_t2_side.argtypes = [vp, vp]
+    L.tic_t2_rows.argtypes = [vp, cp, c_i64, c_i64, vp, c_int, vp, vp, vp]
+    for name in ("tic_t2_add_resolutions", "tic_t2_side", "tic_t2_rows"):
+        getattr(L, name).restype = None
+    L.tic_t2_blocks.argtypes = [vp]
+    L.tic_t2_blocks.restype = c_i64
+    L.tic_t1_rows_check.argtypes = [vp, c_i64, vp, c_i64]
+    L.tic_t1_rows_check.restype = c_i64

@@ -1,15 +1,17 @@
-// Native JPEG2000 Tier-2 packet-header parser (ITU-T T.800 B.9-B.12).
+// Native JPEG2000 Tier-2 packet-header parser (ITU-T T.800 B.9-B.12) and
+// the code-block rows Tier-1 reads.
 //
-// Port of the bit-level half of codecs/jpeg2000/t2.py's PacketDecoder
-// (tag trees, inclusion, zero-bitplanes, pass counts, Lblock, segment
-// lengths) — semantics kept bit-identical; the progression-order packet
-// ITERATION and all geometry stay in Python. Profiling showed the
-// Python header parse at ~40% of HTJ2K decode wall time (88k tag-tree
-// node visits per 1024x1024 image); the reference hands this to
-// nvjpeg2k's internal parser, this is the host analog.
-//
-// Handle-based: one context per tile holds every precinct-band's tag
-// trees and per-code-block state across layers.
+// One context a tile holds every precinct-band's tag trees and, for every
+// code-block, its rectangle (laid out from the band, precinct and
+// code-block sizes as codestream.py's cblk_grid_precinct does), inclusion,
+// zero bit-planes, passes, Lblock and codeword segments across layers. A
+// segment is kept as (offset, length) ranges of the tile data (the body
+// stream under PPT/PPM): a continuation adjacent to the range before it
+// extends that range, any other is a range of its own, joined to the rest
+// when the rows are written. The progression order stays in Python, which
+// hands the tile's packets over in one call (`tic_t2_read_packets`);
+// `tic_t2_rows` then writes the row of every code-block Tier-1 decodes, so
+// no step a code-block or a segment runs in the interpreter.
 
 #include <cstdint>
 #include <cstring>
@@ -49,31 +51,41 @@ struct BitRd {
     }
 };
 
-// T.800 B.10.2 tag tree, decoder side (mirrors tagtree.py exactly).
-struct TagT {
-    int w = 1, h = 1;
-    std::vector<int> offs, lws;
+// A tile's tag-tree nodes: each node's lower bound and whether it is
+// coded, every tree's nodes in one run.
+struct TagNodes {
     std::vector<int32_t> low;
     std::vector<uint8_t> coded;
+};
 
-    void init(int W, int H) {
-        w = W; h = H;
-        offs.clear(); lws.clear();
+// T.800 B.10.2 tag tree, decoder side (mirrors tagtree.py exactly); its
+// nodes are `base` on in the tile's TagNodes, level by level from the
+// leaves.
+struct TagT {
+    int w = 1, nlev = 0;
+    int offs[32], lws[32];
+    int64_t base = 0;
+
+    void init(int W, int H, TagNodes& nodes) {
+        w = W;
+        nlev = 0;
         int lw = W, lh = H, acc = 0;
         for (;;) {
-            offs.push_back(acc);
-            lws.push_back(lw);
+            offs[nlev] = acc;
+            lws[nlev++] = lw;
             acc += lw * lh;
             if (lw == 1 && lh == 1) break;
             lw = (lw + 1) / 2;
             lh = (lh + 1) / 2;
         }
-        low.assign(acc, 0);
-        coded.assign(acc, 0);
+        base = (int64_t)nodes.low.size();
+        nodes.low.resize(nodes.low.size() + acc, 0);
+        nodes.coded.resize(nodes.coded.size() + acc, 0);
     }
     // returns true iff leaf value < threshold
-    bool decode(BitRd& br, int x, int y, int threshold) {
-        int nlev = (int)offs.size();
+    bool decode(BitRd& br, int x, int y, int threshold, TagNodes& nodes) {
+        int32_t* low = nodes.low.data() + base;
+        uint8_t* coded = nodes.coded.data() + base;
         int32_t lo = 0;
         int idx = 0;
         for (int level = nlev - 1; level >= 0; level--) {
@@ -88,7 +100,17 @@ struct TagT {
         }
         return coded[idx] && lo < threshold;
     }
-    int32_t leaf(int x, int y) const { return low[y * w + x]; }
+    int32_t leaf(int x, int y, const TagNodes& nodes) const {
+        return nodes.low[base + y * w + x];
+    }
+};
+
+// One range of a codeword segment; `first` starts a segment. A block's
+// ranges are a list through `next` (-1 ends it) in the context's pool.
+struct Piece {
+    int64_t off, len;
+    int32_t next;
+    bool first;
 };
 
 struct CbState {
@@ -96,6 +118,8 @@ struct CbState {
     int32_t zero_bps = 0;
     int32_t num_passes = 0;
     int32_t lblock = 3;
+    int32_t x0 = 0, y0 = 0, x1 = 0, y1 = 0;
+    int32_t head = -1, tail = -1;  // its first and last range
 };
 
 struct PrecBand {
@@ -107,7 +131,21 @@ struct PrecBand {
 struct T2Ctx {
     std::vector<PrecBand> bands;
     std::vector<CbState> cbs;
+    TagNodes nodes;             // every precinct-band's two trees
+    std::vector<Piece> pieces;  // every block's ranges
+    std::vector<int64_t> body;  // a packet's length fields, reused
+    std::vector<Piece> scratch;  // one block's ranges in order, reused
+    std::vector<uint8_t> side;   // the rows' side area
 };
+
+// a / b rounded up and down, b > 0 (Python's -(-a // b) and a // b)
+static inline int64_t ceil_div(int64_t a, int64_t b) {
+    return a >= 0 ? (a + b - 1) / b : -((-a) / b);
+}
+
+static inline int64_t floor_div(int64_t a, int64_t b) {
+    return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
 
 static int npasses_read(BitRd& br) {
     if (!br.bit()) return 1;
@@ -139,6 +177,71 @@ static inline bool t2_terminated_after(int style, int p) {
     return t2_pass_is_raw(style, p) != t2_pass_is_raw(style, p + 1);
 }
 
+// The native Tier-1 decoder's check of a TERMALL/BYPASS blob
+// (native/j2k_t1.cpp): [i32 count 1..112][i32 lengths][the segments],
+// every length within what follows.
+static bool blob_ok(const uint8_t* b, int64_t len) {
+    if (len < 4) return false;
+    int32_t ns;
+    std::memcpy(&ns, b, 4);
+    if (ns < 1 || ns > 112 || len < 4 + 4 * (int64_t)ns) return false;
+    int64_t remain = len - 4 - 4 * (int64_t)ns;
+    for (int i = 0; i < ns; i++) {
+        int32_t sl;
+        std::memcpy(&sl, b + 4 + 4 * i, 4);
+        if (sl < 0 || sl > remain) return false;
+        remain -= sl;
+    }
+    return true;
+}
+
+// That decoder's other rules on a part-1 row (ops/j2k_t1.py ROW: segment
+// offset and length, w, h, band | style << 8, bit-planes, passes, stride).
+static bool dims_ok(const int32_t* row) {
+    return row[2] >= 1 && row[2] <= 4096 && row[3] >= 1 && row[3] <= 4096 &&
+           row[5] >= 0 && row[5] <= 31 && row[6] >= 0 && row[7] >= row[2];
+}
+
+// Writes the n pieces of a code-block's segments to `o`: their bytes
+// joined, or, as a blob, [i32 count][i32 lengths][the segments] (one empty
+// segment where there is none). Returns the bytes written.
+static int64_t put_segments(const Piece* p, size_t n, const uint8_t* data,
+                            uint8_t* o, bool blob) {
+    uint8_t* const start = o;
+    if (blob) {
+        int32_t ns = 0;
+        for (size_t i = 0; i < n; i++) ns += p[i].first;
+        if (ns == 0) {
+            const int32_t empty[2] = {1, 0};
+            std::memcpy(o, empty, 8);
+            return 8;
+        }
+        std::memcpy(o, &ns, 4);
+        int32_t l = 0;
+        int k = 0;
+        for (size_t i = 0; i < n; i++) {
+            if (p[i].first && i > 0) {
+                std::memcpy(o + 4 + 4 * k++, &l, 4);
+                l = 0;
+            }
+            l += (int32_t)p[i].len;
+        }
+        std::memcpy(o + 4 + 4 * k, &l, 4);
+        o += 4 + 4 * (int64_t)ns;
+    }
+    for (size_t i = 0; i < n; i++) {
+        std::memcpy(o, data + p[i].off, (size_t)p[i].len);
+        o += p[i].len;
+    }
+    return o - start;
+}
+
+// A segment as a row gives it: offset (from the start of the caller's
+// data) and length.
+struct Placed {
+    int64_t off, len;
+};
+
 }  // namespace
 
 extern "C" {
@@ -147,39 +250,110 @@ void* tic_t2_create() { return new T2Ctx(); }
 
 void tic_t2_free(void* h) { delete (T2Ctx*)h; }
 
-// Register one precinct-band (nx x ny code-blocks; nx/ny may be 0).
-// Returns its band id.
-int tic_t2_add_precband(void* h, int nx, int ny) {
-    T2Ctx* c = (T2Ctx*)h;
+// Registers one precinct-band: the band's rectangle `b` (x0, y0, x1, y1)
+// at resolution r with precinct exponents PPx, PPy, the precinct's
+// rectangle `pr` in resolution coordinates and the code-block size cw x
+// ch. Lays out its code-blocks (T.800 B.7, as codestream.py's
+// cblk_grid_precinct: the precinct mapped into the band, halved above
+// r = 0, and the code-block grid anchored at 0 with sides of
+// min(code-block, precinct-in-band)).
+static void add_precband(T2Ctx* c, const int32_t* b, int r, int ppx,
+                         int ppy, const int64_t* pr, int cw, int ch) {
+    const int s = r == 0 ? 0 : 1;
+    int64_t ecw = cw, ech = ch;
+    const int64_t pw = int64_t(1) << (ppx > s ? ppx - s : 0);
+    const int64_t ph = int64_t(1) << (ppy > s ? ppy - s : 0);
+    if (pw < ecw) ecw = pw;
+    if (ph < ech) ech = ph;
+    int64_t bx0 = pr[0] >> s, by0 = pr[1] >> s;
+    int64_t bx1 = ceil_div(pr[2], int64_t(1) << s);
+    int64_t by1 = ceil_div(pr[3], int64_t(1) << s);
+    if (bx0 < b[0]) bx0 = b[0];
+    if (by0 < b[1]) by0 = b[1];
+    if (bx1 > b[2]) bx1 = b[2];
+    if (by1 > b[3]) by1 = b[3];
+    int nx = 0, ny = 0;
+    int64_t gx0 = 0, gy0 = 0;
+    if (bx1 > bx0 && by1 > by0) {
+        gx0 = floor_div(bx0, ecw) * ecw;
+        gy0 = floor_div(by0, ech) * ech;
+        nx = (int)ceil_div(bx1 - gx0, ecw);
+        ny = (int)ceil_div(by1 - gy0, ech);
+    }
     PrecBand pb;
-    pb.incl.init(nx > 0 ? nx : 1, ny > 0 ? ny : 1);
-    pb.zbp.init(nx > 0 ? nx : 1, ny > 0 ? ny : 1);
+    pb.incl.init(nx > 0 ? nx : 1, ny > 0 ? ny : 1, c->nodes);
+    pb.zbp.init(nx > 0 ? nx : 1, ny > 0 ? ny : 1, c->nodes);
     pb.nx = nx;
     pb.ny = ny;
     pb.cb_base = (int)c->cbs.size();
-    c->cbs.resize(c->cbs.size() + size_t(nx > 0 ? nx : 0) * (ny > 0 ? ny : 0));
-    c->bands.push_back(std::move(pb));
-    return (int)c->bands.size() - 1;
+    c->cbs.resize(c->cbs.size() + size_t(nx) * ny);
+    for (int j = 0; j < ny; j++)
+        for (int i = 0; i < nx; i++) {
+            CbState& cb = c->cbs[pb.cb_base + j * nx + i];
+            const int64_t x0 = gx0 + i * ecw, y0 = gy0 + j * ech;
+            cb.x0 = (int32_t)(x0 > bx0 ? x0 : bx0);
+            cb.y0 = (int32_t)(y0 > by0 ? y0 : by0);
+            cb.x1 = (int32_t)(x0 + ecw < bx1 ? x0 + ecw : bx1);
+            cb.y1 = (int32_t)(y0 + ech < by1 ? y0 + ech : by1);
+        }
+    c->bands.push_back(pb);
 }
 
-// Parse one packet at *pos. band_ids: the packet's precinct-bands in band
-// order. ht_style: nonzero when the HT (T.814) two-segment rule applies.
-// out: triples (global_cb_id, seg_off, seg_len) per codeword segment.
-// Returns #triples (>= 0) or a negative error:
+// Registers the precinct-bands of n resolutions, a tile's in (component,
+// resolution) order, 22 int32 each: the resolution's rectangle (x0, y0,
+// x1, y1), r, the precinct exponents PPx and PPy, the code-block width and
+// height, its band count (1 or 3) and each band's rectangle. A
+// resolution's precincts (T.800 B.6: a grid of 2^PPx x 2^PPy anchored at
+// 0, clipped to the resolution, as codestream.py's precinct_rect) go in
+// raster order, each with its bands in order. The ids of the
+// precinct-bands follow from 0 in that order.
+void tic_t2_add_resolutions(void* h, int n, const int32_t* g) {
+    T2Ctx* c = (T2Ctx*)h;
+    for (int k = 0; k < n; k++, g += 22) {
+        const int ppx = g[5], ppy = g[6];
+        int64_t npx = 0, npy = 0;
+        if (g[2] > g[0] && g[3] > g[1]) {
+            npx = ceil_div(g[2], int64_t(1) << ppx) - (g[0] >> ppx);
+            npy = ceil_div(g[3], int64_t(1) << ppy) - (g[1] >> ppy);
+        }
+        for (int64_t p = 0; p < npx * npy; p++) {
+            const int64_t gx = ((g[0] >> ppx) + p % npx) << ppx;
+            const int64_t gy = ((g[1] >> ppy) + p / npx) << ppy;
+            const int64_t pr[4] = {
+                gx > g[0] ? gx : g[0], gy > g[1] ? gy : g[1],
+                gx + (int64_t(1) << ppx) < g[2] ? gx + (int64_t(1) << ppx)
+                                                : g[2],
+                gy + (int64_t(1) << ppy) < g[3] ? gy + (int64_t(1) << ppy)
+                                                : g[3]};
+            for (int bi = 0; bi < g[9]; bi++)
+                add_precband(c, g + 10 + 4 * bi, g[4], ppx, ppy, pr, g[7],
+                             g[8]);
+        }
+    }
+}
+
+// Parses one packet at *pos and keeps its codeword segments. band_ids: the
+// packet's precinct-bands in band order. ht_style: the code-block style
+// bits 0x45 (0x40 the HT two-segment rule, 0x05 part-1 TERMALL/BYPASS
+// terminations). Returns the length fields read (>= 0) or a negative
+// error:
 //   -1 runaway zero-bitplane tree, -2 runaway Lblock,
-//   -3 absurd segment length, -4 body past end, -5 out capacity.
+//   -3 absurd segment length, -4 body past end, -5 more length fields than
+//   a packet of these code-blocks carries (2 a block, 110 under
+//   TERMALL/BYPASS, and 8).
 // flags: bit 0 = SOP markers may precede packets (Scod bit 1),
 //        bit 1 = EPH marker terminates every packet header (Scod bit 2)
 // body/body_len/body_pos: when non-NULL, packet headers come from `data`
 // (a PPT packed-header buffer) while the codeword segments live in the
 // separate body stream (T.800 A.7.5); otherwise bodies follow the header.
-int tic_t2_read_packet_split(void* h, const uint8_t* data, int64_t len,
-                             int64_t* pos, int layer,
-                             const int32_t* band_ids, int nbands,
-                             int ht_style, int64_t* out, int out_cap,
-                             int flags, const uint8_t* bodyd,
-                             int64_t body_len, int64_t* body_pos) {
-    T2Ctx* c = (T2Ctx*)h;
+// A segment's offset counts from the start of the stream it lies in. After
+// an error the context is part-way through a packet: the tile's decode
+// ends there.
+static int read_packet(T2Ctx* c, const uint8_t* data, int64_t len,
+                       int64_t* pos, int layer, const int32_t* band_ids,
+                       int nbands, int ht_style, int flags,
+                       const uint8_t* bodyd, int64_t body_len,
+                       int64_t* body_pos) {
     if (flags & 1) {  // SOP precedes the packet in the BODY stream
         const uint8_t* sd = bodyd ? bodyd : data;
         int64_t slen = bodyd ? body_len : len;
@@ -189,7 +363,6 @@ int tic_t2_read_packet_split(void* h, const uint8_t* data, int64_t len,
     }
     BitRd br;
     br.init(data, len, *pos);
-    int nout = 0;
     if (!br.bit()) {  // empty packet
         br.align();
         *pos = br.pos;
@@ -198,28 +371,30 @@ int tic_t2_read_packet_split(void* h, const uint8_t* data, int64_t len,
             *pos += 2;  // EPH after the (empty) packet header
         return 0;
     }
-    // (cb_id, seg_len) body reads, order preserved
-    int body_n = 0;
-    std::vector<int64_t> body;  // pairs
+    // (cb_id | continuation << 62, seg_len) body reads, order preserved
+    std::vector<int64_t>& body = c->body;
+    body.clear();
+    int64_t ncb_all = 0;
     for (int b = 0; b < nbands; b++) {
         PrecBand& pb = c->bands[band_ids[b]];
         int ncb = pb.nx * pb.ny;
+        ncb_all += ncb;
         for (int idx = 0; idx < ncb; idx++) {
             CbState& cb = c->cbs[pb.cb_base + idx];
             int x = pb.nx > 0 ? idx % pb.nx : 0;
             int y = pb.nx > 0 ? idx / pb.nx : 0;
             bool inc;
             if (!cb.included)
-                inc = pb.incl.decode(br, x, y, layer + 1);
+                inc = pb.incl.decode(br, x, y, layer + 1, c->nodes);
             else
                 inc = br.bit() != 0;
             if (!inc) continue;
             if (!cb.included) {
-                int k = 1;
-                while (!pb.zbp.decode(br, x, y, k)) {
-                    if (++k > 64) return -1;
-                }
-                cb.zero_bps = pb.zbp.leaf(x, y);
+                // one walk to the leaf reads the bits that thresholds 1,
+                // 2, ... would (each node's until it is coded); a value
+                // of 64 or more is a runaway tree
+                if (!pb.zbp.decode(br, x, y, 64, c->nodes)) return -1;
+                cb.zero_bps = pb.zbp.leaf(x, y, c->nodes);
                 cb.included = 1;
             }
             int npasses = npasses_read(br);
@@ -238,8 +413,6 @@ int tic_t2_read_packet_split(void* h, const uint8_t* data, int64_t len,
                 // one length field per termination-delimited group of the
                 // NEW passes; a group whose first pass does not follow a
                 // termination continues the segment from a prior layer
-                // (flagged via bit 62 of the cb_id so the consumer
-                // concatenates instead of starting a new segment)
                 ngroups = 0;
                 int cnt = 0;
                 int last = cb.num_passes + npasses - 1;
@@ -265,13 +438,13 @@ int tic_t2_read_packet_split(void* h, const uint8_t* data, int64_t len,
                 body.push_back((int64_t)(pb.cb_base + idx) |
                                (cont_flag[g] ? (int64_t)1 << 62 : 0));
                 body.push_back((int64_t)seg_len);
-                body_n++;
             }
             cb.num_passes += npasses;
         }
     }
     br.align();
-    if (body_n > out_cap) return -5;
+    const int64_t body_n = (int64_t)body.size() / 2;
+    if (body_n > 8 + ((ht_style & 0x05) ? 110 : 2) * ncb_all) return -5;
     int64_t p = br.pos;
     if ((flags & 2) && p + 2 <= len && data[p] == 0xFF && data[p + 1] == 0x92)
         p += 2;  // EPH terminates the packet header
@@ -280,45 +453,191 @@ int tic_t2_read_packet_split(void* h, const uint8_t* data, int64_t len,
         p = *body_pos;
         len = body_len;
     }
-    for (int i = 0; i < body_n; i++) {
-        int64_t cb_id = body[2 * i], seg_len = body[2 * i + 1];
-        if (p + seg_len > len) return -4;
-        out[3 * nout + 0] = cb_id;
-        out[3 * nout + 1] = p;
-        out[3 * nout + 2] = seg_len;
-        nout++;
-        p += seg_len;
+    int64_t end = p;
+    for (int64_t i = 0; i < body_n; i++) {
+        if (end + body[2 * i + 1] > len) return -4;
+        end += body[2 * i + 1];
+    }
+    for (int64_t i = 0; i < body_n; i++) {
+        const int64_t id = body[2 * i] & (((int64_t)1 << 62) - 1);
+        const bool cont = (body[2 * i] >> 62) & 1;
+        const int64_t ln = body[2 * i + 1];
+        CbState& cb = c->cbs[id];
+        if (cont && cb.tail >= 0 &&
+            c->pieces[cb.tail].off + c->pieces[cb.tail].len == p) {
+            c->pieces[cb.tail].len += ln;
+        } else {
+            const bool first = !(cont && cb.tail >= 0);
+            const int32_t k = (int32_t)c->pieces.size();
+            c->pieces.push_back({p, ln, -1, first});
+            if (cb.tail >= 0) c->pieces[cb.tail].next = k;
+            else cb.head = k;
+            cb.tail = k;
+        }
+        p += ln;
     }
     if (bodyd) *body_pos = p;
     else *pos = p;
-    return nout;
+    return (int)body_n;
 }
 
-int tic_t2_read_packet(void* h, const uint8_t* data, int64_t len,
-                       int64_t* pos, int layer, const int32_t* band_ids,
-                       int nbands, int ht_style, int64_t* out,
-                       int out_cap, int flags) {
-    return tic_t2_read_packet_split(h, data, len, pos, layer, band_ids,
-                                    nbands, ht_style, out, out_cap, flags,
-                                    nullptr, 0, nullptr);
-}
-
-// Dump accumulated per-code-block state for a band id range [b0, b1):
-// per cb (in registration order): included, zero_bps, num_passes.
-void tic_t2_dump(void* h, int band_id, int32_t* incl, int32_t* zbps,
-                 int32_t* npasses) {
+// Reads a tile's n packets in progression order, 4 int32 each: the
+// layer, the first of its precinct-bands' ids (the others follow), their
+// count and the code-block style bits 0x45. data/len: the tile data, or,
+// with a body stream (PPT/PPM), the packed headers. Returns 0, a negative
+// error of read_packet, or -6 where a packet starts past the end of the
+// headers. A segment's offset counts from the start of the tile data (the
+// body stream).
+int tic_t2_read_packets(void* h, const uint8_t* data, int64_t len,
+                        const uint8_t* body, int64_t body_len,
+                        const int32_t* pk, int n, int flags) {
     T2Ctx* c = (T2Ctx*)h;
-    PrecBand& pb = c->bands[band_id];
-    int ncb = pb.nx * pb.ny;
-    for (int i = 0; i < ncb; i++) {
-        CbState& cb = c->cbs[pb.cb_base + i];
-        incl[i] = cb.included;
-        zbps[i] = cb.zero_bps;
-        npasses[i] = cb.num_passes;
+    int64_t pos = 0, body_pos = 0;
+    std::vector<int32_t> ids;
+    for (int i = 0; i < n; i++, pk += 4) {
+        if (pos > len) return -6;
+        ids.resize(pk[2]);
+        for (int b = 0; b < pk[2]; b++) ids[b] = pk[1] + b;
+        const int rc = read_packet(c, data, len, &pos, pk[0], ids.data(),
+                                   pk[2], pk[3], flags, body, body_len,
+                                   body ? &body_pos : nullptr);
+        if (rc < 0) return rc;
     }
+    return 0;
 }
 
-}  // extern "C"\n
+// The tile's code-blocks: the most rows of each kind `tic_t2_rows` writes.
+int64_t tic_t2_blocks(void* h) { return (int64_t)((T2Ctx*)h)->cbs.size(); }
+
+// Copies the side area the last `tic_t2_rows` wrote to dst.
+void tic_t2_side(void* h, uint8_t* dst) {
+    T2Ctx* c = (T2Ctx*)h;
+    std::memcpy(dst, c->side.data(), c->side.size());
+}
+
+// The row of every code-block with a pass that Tier-1 decodes, band after
+// band, each band's precinct-bands in turn, each in raster order. specs:
+// nspecs bands, 16 int64 each: kind (0 part-1, 1 HT), the element offset
+// of the band's plane and its row stride, the band type, Mb (the band's
+// magnitude bit-planes), the code-block style, the band's x0 and y0, a
+// region flag and the region (y0, x0, y1, x1; a block wholly outside it is
+// left out), the band's first precinct-band id, their count and the step
+// between their ids. data/len: the tile data (or body stream), which the
+// caller's data holds at `base`, followed at base + len by the side area
+// (`tic_t2_side`).
+//   t1: a part-1 block's row, 10 int32 (ops/j2k_t1.py ROW): segment offset
+//     and length, w, h, band | style << 8, bit-planes, passes, the row
+//     stride, the destination's element offset (low, high 32 bits). The
+//     segment is a range of the tile where the block has one of one range,
+//     else its segments joined in the side area, or, under TERMALL/BYPASS,
+//     their blob [i32 count][i32 lengths][the segments] there.
+//   ht: an HT block's row, 12 int32: its cleanup segment and the others
+//     joined (offset and length each, placed as above), passes, w, h, B,
+//     Ucap, the stride and the destination.
+// out: [part-1 rows, HT rows, side bytes, the first part-1 row the native
+// decoder would refuse or whose range leaves the tile (-1 none)]. t1 and
+// ht hold tic_t2_blocks rows each.
+void tic_t2_rows(void* h, const uint8_t* data, int64_t len, int64_t base,
+                 const int64_t* specs, int nspecs, int32_t* t1, int32_t* ht,
+                 int64_t* out) {
+    T2Ctx* c = (T2Ctx*)h;
+    int64_t n1 = 0, n2 = 0, bad = -1;
+    std::vector<uint8_t>& side = c->side;
+    side.clear();
+    const int64_t side_base = base + len;
+    // a segment of one range stays in the tile; any other goes to `side`
+    auto put = [&](const Piece* q, size_t n, bool as_blob) -> Placed {
+        if (n == 1 && !as_blob) return {base + q[0].off, q[0].len};
+        int64_t need = as_blob ? 8 + 4 * (int64_t)n : 0;
+        for (size_t i = 0; i < n; i++) need += q[i].len;
+        const int64_t at = (int64_t)side.size();
+        side.resize(at + need);
+        const int64_t w = put_segments(q, n, data, side.data() + at, as_blob);
+        side.resize(at + w);
+        return {side_base + at, w};
+    };
+    for (int s = 0; s < nspecs; s++) {
+        const int64_t* sp = specs + 16 * s;
+        const int64_t plane = sp[1], stride = sp[2];
+        const int btype = (int)sp[3], mb = (int)sp[4];
+        const int style = (int)sp[5] & 0x2F;
+        const bool blob = (style & 0x05) != 0;
+        for (int64_t k = 0; k < sp[14]; k++) {
+            const PrecBand& pb = c->bands[sp[13] + k * sp[15]];
+            for (int i = 0; i < pb.nx * pb.ny; i++) {
+                const CbState& cb = c->cbs[pb.cb_base + i];
+                if (!cb.included || cb.num_passes == 0) continue;
+                if (sp[8] && (cb.y1 <= sp[9] || cb.x1 <= sp[10] ||
+                              cb.y0 >= sp[11] || cb.x0 >= sp[12]))
+                    continue;
+                const int64_t dest = plane + (cb.y0 - sp[7]) * stride +
+                                     (cb.x0 - sp[6]);
+                std::vector<Piece>& q = c->scratch;
+                q.clear();
+                for (int32_t k = cb.head; k >= 0; k = c->pieces[k].next)
+                    q.push_back(c->pieces[k]);
+                const Piece* p = q.data();
+                const size_t np = q.size();
+                int32_t* row;
+                if (sp[0] == 1) {
+                    size_t e1 = np;  // the cleanup segment's pieces end
+                    for (size_t j = 1; j < np; j++)
+                        if (p[j].first) { e1 = j; break; }
+                    const Placed cup = put(p, e1, false);
+                    const Placed ref = put(p + e1, np - e1, false);
+                    row = ht + 12 * n2++;
+                    row[0] = (int32_t)cup.off; row[1] = (int32_t)cup.len;
+                    row[2] = (int32_t)ref.off; row[3] = (int32_t)ref.len;
+                    row[4] = cb.num_passes;
+                    row[5] = cb.x1 - cb.x0; row[6] = cb.y1 - cb.y0;
+                    row[7] = mb - cb.zero_bps; row[8] = cb.zero_bps + 1;
+                    row[9] = (int32_t)stride;
+                    std::memcpy(row + 10, &dest, 8);
+                    continue;
+                }
+                const Placed seg = put(p, np, blob);
+                row = t1 + 10 * n1;
+                row[0] = (int32_t)seg.off; row[1] = (int32_t)seg.len;
+                row[2] = cb.x1 - cb.x0; row[3] = cb.y1 - cb.y0;
+                row[4] = btype | (style << 8);
+                row[5] = mb - cb.zero_bps > 0 ? mb - cb.zero_bps : 0;
+                row[6] = cb.num_passes;
+                row[7] = (int32_t)stride;
+                std::memcpy(row + 8, &dest, 8);
+                bool ok = dims_ok(row) && row[7] == stride;
+                if (blob)
+                    ok = ok && blob_ok(side.data() + (seg.off - side_base),
+                                       seg.len);
+                else if (np == 1)
+                    ok = ok && p[0].off >= 0 && p[0].len >= 0 &&
+                         p[0].off + p[0].len <= len;
+                if (!ok && bad < 0) bad = n1;
+                n1++;
+            }
+        }
+    }
+    out[0] = n1;
+    out[1] = n2;
+    out[2] = (int64_t)side.size();
+    out[3] = bad;
+}
+
+// The first of n part-1 rows (ops/j2k_t1.py ROW) the native decoder would
+// refuse or whose segment leaves `data` (len bytes); -1 for none.
+int64_t tic_t1_rows_check(const int32_t* rows, int64_t n,
+                          const uint8_t* data, int64_t len) {
+    for (int64_t i = 0; i < n; i++) {
+        const int32_t* row = rows + 10 * i;
+        bool ok = dims_ok(row) && row[0] >= 0 && row[1] >= 0 &&
+                  (int64_t)row[0] + row[1] <= len;
+        if (ok && ((row[4] >> 8) & 0x05)) ok = blob_ok(data + row[0], row[1]);
+        if (!ok) return i;
+    }
+    return -1;
+}
+
+}  // extern "C"
+
 // ----------------------------------------------------------- encoder side
 // Native packet-header WRITER (T.800 B.10) — the symmetric move to the
 // reader above: tag-tree emission + lblock/npasses signaling were ~25% of

@@ -2,13 +2,15 @@
 
 `BlockTable` describes the code-blocks of a tile, or of every tile of a
 uniform grid, instead of decoding them: a row of ROW int32 a block (the
-native batch decoder's meta row, `t1_row`, then where its coefficients go).
-Each row is checked as it is added with the rules of the native decoder
-(native/j2k_t1.cpp), and `end_tile` raises that decoder's ValueError, so a
-malformed stream fails on the host before any launch and the kernel needs
-no error path. `staged` lays out the table, sorted longest segment first,
-and the codestream bytes in one buffer (pinned for a CUDA device) that goes
-up in one copy.
+native batch decoder's meta row, `t1_row`, then where its coefficients go),
+as Tier-2 writes them for a whole tile in one native pass
+(codecs/jpeg2000/t2.py `PacketDecoder.rows`), which checks every row with
+the rules of the native decoder (native/j2k_t1.cpp; `check_rows` applies
+them to rows made elsewhere), and `add_tile` raises that decoder's
+ValueError, so a malformed stream fails on the host before any launch and
+the kernel needs no error path. `staged` lays out the table, sorted
+longest segment first, and the codestream bytes in one buffer (pinned for
+a CUDA device) that goes up in one copy.
 
 `decode_codeblocks` decodes every row of a staged table into a zeroed flat
 int32 buffer. A CUDA buffer launches csrc/j2k_t1.cu (one warp a code-block)
@@ -19,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import struct
 from typing import NamedTuple
 
 import numpy as np
@@ -50,28 +51,28 @@ class Layout(NamedTuple):
     mag_words: int
 
 
-def _blob_ok(blob) -> bool:
-    """The native decoder's check of a TERMALL/BYPASS blob: [int32 count
-    (1..112)][int32 lengths][the segments], every length within what
-    follows."""
-    if len(blob) < 4:
-        return False
-    (ns,) = struct.unpack_from("<i", blob, 0)
-    if ns < 1 or ns > 112 or len(blob) < 4 + 4 * ns:
-        return False
-    remain = len(blob) - 4 - 4 * ns
-    for sl in struct.unpack_from(f"<{ns}i", blob, 4):
-        if sl < 0 or sl > remain:
-            return False
-        remain -= sl
-    return True
-
-
 def t1_row(off: int, length: int, w: int, h: int, band: int, nbps: int,
            passes: int, style: int) -> tuple:
     """The META row of a part-1 code-block whose segment is `length` bytes
     at `off` of its batch's data."""
     return (off, length, w, h, band | (style << 8), nbps, passes)
+
+
+def row_dest(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """A row's destination, the int64 element offset whose low and high
+    32 bits its last two int32 hold."""
+    return lo.view(np.uint32).astype(np.int64) | (hi.astype(np.int64) << 32)
+
+
+def check_rows(rows: np.ndarray, data) -> int:
+    """The first of the part-1 rows ([n, ROW] int32, segment offsets into
+    `data`) the native decoder would refuse or whose segment lies outside
+    `data`; -1 for none."""
+    rows = np.ascontiguousarray(rows, np.int32)
+    buf = np.frombuffer(data, np.uint8) if len(data) else np.zeros(1,
+                                                                   np.uint8)
+    return int(_native_lib().tic_t1_rows_check(
+        rows.ctypes.data, len(rows), buf.ctypes.data, len(data)))
 
 
 # the native batch decoders that write each block in place, and their rows
@@ -120,84 +121,43 @@ class BlockTable:
     rows for the device decoder (see the module's note)."""
 
     def __init__(self):
-        self._parts: list = []  # tile data, and segments built in Python
-        self._size = 0
-        self._rows: list = []   # ROW - 1 ints a block (one destination)
-        self._bad: list = []    # rows the native decoder would refuse
-        self._first = 0         # the current tile's first row
-        self._tile = b""
-        self._base = 0
+        self._parts: list = []  # the data: tile data and side areas
+        self.size = 0           # bytes of the data so far
+        self._rows: list = []   # [n, ROW] int32 a tile
 
     def __len__(self) -> int:
-        return len(self._rows) // (ROW - 1)
+        return sum(len(r) for r in self._rows)
 
-    def _put(self, b) -> int:
-        off = self._size
-        self._parts.append(b)
-        self._size += len(b)
-        return off
-
-    def add_tile(self, tdata) -> None:
-        """Starts a tile: an (off, len) segment of the blocks added after
-        this is a range of `tdata`."""
-        self._first = len(self)
-        self._tile = tdata
-        self._base = self._put(tdata)
-
-    def add(self, block, dest) -> None:
-        """One code-block as the host Tier-1 takes it, (seg, w, h, band,
-        nbps, passes, style, y, x), and `dest`, (plane, stride): its [h, w]
-        coefficients go to the flat buffer from element plane + y * stride
-        + x, rows `stride` apart."""
-        seg, w, h, band, nbps, passes, style, y, x = block
-        plane, stride = dest
-        ok = (1 <= w <= 4096 and 1 <= h <= 4096 and 0 <= nbps <= 31
-              and passes >= 0 and stride >= w)
-        if type(seg) is tuple:
-            so, sl = seg
-            ok = ok and so >= 0 and sl >= 0 and so + sl <= len(self._tile)
-            off = self._base + so
-            blob = self._tile[so:so + sl] if style & 0x05 else None
-        else:
-            sl = len(seg)
-            off = self._put(seg)
-            blob = seg
-        if ok and style & 0x05:
-            ok = _blob_ok(blob)
-        if not ok:
-            self._bad.append(len(self))
-        self._rows += t1_row(off, sl, w, h, band, nbps, passes, style)
-        self._rows += (stride, plane + y * stride + x)
+    def add_tile(self, rows: np.ndarray, parts, bad: int) -> int:
+        """A tile's rows, [n, ROW] int32 whose segment offsets count from
+        the table's data, where `parts` (bytes-like) go, at `size`. `bad`
+        is the first row the native decoder would refuse (-1 none), as
+        Tier-2's rows or `check_rows` give it: raises that decoder's
+        ValueError for it. Returns n."""
+        n = len(rows)
+        if bad >= 0:
+            raise ValueError(f"J2K T1 block decode failed rc=1 "
+                             f"(block {bad} of {n})")
+        self._rows.append(rows)
+        for p in parts:
+            self._parts.append(p)
+            self.size += len(p)
+        return n
 
     def rows(self) -> np.ndarray:
-        """[n, ROW - 1] int64, in the order added: a row's fields with the
-        destination's offset whole."""
-        return np.asarray(self._rows, np.int64).reshape(len(self), ROW - 1)
-
-    def end_tile(self) -> int:
-        """The tile's block count; raises the native decoder's ValueError
-        for its first block that decoder would refuse."""
-        n = len(self) - self._first
-        for i in self._bad:
-            if i >= self._first:
-                raise ValueError(f"J2K T1 block decode failed rc=1 "
-                                 f"(block {i - self._first} of {n})")
-        return n
+        """[n, ROW] int32, in the order added."""
+        return (np.concatenate(self._rows) if self._rows
+                else np.zeros((0, ROW), np.int32))
 
     def staged(self, alloc=None):
         """(uint8 buffer, Layout): the table, longest segment first, then
         the data, in a buffer of `alloc(nbytes)` (a CPU tensor by
         default)."""
-        n = len(self)
-        a = self.rows()
-        a = a[np.argsort(-a[:, 1], kind="stable")]
-        t = np.empty((n, ROW), np.int32)
-        t[:, :ROW - 2] = a[:, :ROW - 2]
-        dest = a[:, ROW - 2]
-        t[:, ROW - 2] = (dest & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-        t[:, ROW - 1] = dest >> 32
+        t = self.rows()
+        n = len(t)
+        t = np.ascontiguousarray(t[np.argsort(-t[:, 1], kind="stable")])
         head = -(-t.nbytes // 16) * 16
-        nbytes = head + self._size
+        nbytes = head + self.size
         buf = (alloc(nbytes) if alloc is not None
                else torch.empty(nbytes, dtype=torch.uint8))
         v = buf.numpy()
@@ -206,7 +166,7 @@ class BlockTable:
         for p in self._parts:
             v[pos:pos + len(p)] = np.frombuffer(p, np.uint8)
             pos += len(p)
-        w, h = a[:, 2], a[:, 3]
+        w, h = t[:, 2].astype(np.int64), t[:, 3].astype(np.int64)
         flags = int(((((h + 3) >> 2) + 2) * (w + 2)).max()) if n else 0
         mags = int((w * h).max()) if n else 0
         return buf, Layout(n, head, flags, mags)
@@ -218,8 +178,7 @@ def decode_codeblocks_plain(buf: torch.Tensor, layout: Layout,
     the CPU int32 buffer `out`."""
     n = layout.rows
     t = buf.numpy()[:n * ROW * 4].view(np.int32).reshape(n, ROW)
-    dest = (t[:, META + 1].view(np.uint32).astype(np.int64)
-            | (t[:, META + 2].astype(np.int64) << 32))
+    dest = row_dest(t[:, META + 1], t[:, META + 2])
     decode_batch_into(
         "T1", ctypes.cast(buf.data_ptr() + layout.data_start,
                           ctypes.c_char_p),

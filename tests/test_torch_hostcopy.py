@@ -552,8 +552,9 @@ def test_j2k_native_entries_are_declared():
                 "tic_t1_encode_batch_addr", "tic_ht_encode_batch_addr",
                 "tic_idwt53", "tic_fdwt53", "tic_j2k_rct_shift_u8",
                 "tic_j2k_shift_u8", "tic_t2_create", "tic_t2_free",
-                "tic_t2_add_precband", "tic_t2_read_packet",
-                "tic_t2_read_packet_split", "tic_t2_dump", "tic_t2e_create",
+                "tic_t2_add_resolutions", "tic_t2_read_packets",
+                "tic_t2_blocks", "tic_t2_side", "tic_t2_rows",
+                "tic_t1_rows_check", "tic_t2e_create",
                 "tic_t2e_free", "tic_t2e_add_precband",
                 "tic_t2e_write_packet"):
         assert getattr(L, sym).argtypes is not None, sym

@@ -11,6 +11,7 @@ Tolerances:
 - `Decoder(device="cpu")` / `Encoder(device="cpu")` equal the reference's
   `Decoder()` / `Encoder()`.
 """
+import ctypes
 import hashlib
 import os
 import struct
@@ -36,7 +37,10 @@ from nvimagecodec_tpu_torch.codecs.jpeg2000.codestream import (
     unwrap_jp2,
 )
 from nvimagecodec_tpu_torch.ops import dwt as port_dwt
+from nvimagecodec_tpu_torch.ops import j2k_t1
 from nvimagecodec_tpu_torch.parallel.mesh import make_mesh
+from test_torch_j2k_t1_device import (KINDS, _bad_qcd, _blob, _card_table,
+                                      _no_launch, _on_card_rule, _stream)
 from util import make_photo, psnr
 
 CPU = torch.device("cpu")
@@ -999,3 +1003,132 @@ def test_missing_tile_decodes_like_the_host_path(tile):
     got = port.Decoder(device="cpu", options=(
         "cuda_jpeg2k_hybrid_decoder:device_pixel_stage=true")).decode(cut)
     assert torch.equal(got.array, dev)
+
+
+# ---------------------------------- Tier-2's native rows against the reference
+# (the table route's cases of tests/test_torch_j2k_t1_device.py, held here
+# against the JAX package's Tier-2: that file runs on the card's machine,
+# which has no JAX)
+def _reference_table(data, stage):
+    """The rows of the table and its data, built here block by block from
+    the JAX package's Tier-2 (its PacketDecoder: code-blocks laid out by
+    `cblk_grid_precinct`, their state from `tic_t2_dump`, their segments)
+    and `t1_row`, in the order the device route adds them; the stage gives
+    each band's plane."""
+    from nvimagecodec_tpu.codecs.jpeg2000 import t2 as ref_t2
+    from nvimagecodec_tpu.codecs.jpeg2000.codestream import (
+        HeaderBitReader as RefReader)
+    from nvimagecodec_tpu_torch.codecs.jpeg2000.codestream import (
+        iter_tile_parts, progression_iter, unwrap_jp2)
+
+    cs = unwrap_jp2(data)
+    plan = port_core.plan_stream(cs, CPU)
+    rows, parts = [], []
+    size = 0
+    for tidx, tdata, ppt, tpoc in iter_tile_parts(cs, plan.pos,
+                                                  ppm=plan.cp.ppm):
+        tile = port_core._tile(plan, tidx, tpoc)
+        pdec = ref_t2.PacketDecoder(plan.siz, plan.cp, tile.resolutions)
+        br = RefReader(tdata if ppt is None else ppt, 0)
+        body_pos = ctypes.c_int64(0)
+        for l, r, c, p in progression_iter(tile.cp, tile.resolutions,
+                                           plan.siz.ncomp, tile.rect[0],
+                                           tile.rect[1], sub=plan.sub):
+            if ppt is None:
+                pdec.read_packet(br, c, r, l, p)
+            else:
+                pdec.read_packet(br, c, r, l, p, body=tdata,
+                                 body_pos=body_pos)
+        base = size
+        parts.append(tdata)
+        size += len(tdata)
+        for c, cc in enumerate(plan.ccs):
+            for i, (r, bi) in enumerate(port_core._band_order(cc)):
+                band = tile.resolutions[c][r].bands[bi]
+                mb = cc.band_q[i][0] + cc.guard_bits - 1
+                plane = stage.plane_offset(
+                    *port_core._leaf(plan, tile, c, r, bi))
+                style = cc.cblk_style & 0x2F
+                for cb in pdec.band_cblks(c, r, bi):
+                    if not cb.included or cb.num_passes == 0:
+                        continue
+                    segs = [tdata[x[0]:x[0] + x[1]] if type(x) is tuple
+                            else x for x in cb.segments]
+                    if style & 0x05:
+                        seg = _blob([len(x) for x in segs or [b""]],
+                                    b"".join(segs))
+                    elif len(cb.segments) == 1 and type(
+                            cb.segments[0]) is tuple:
+                        seg = None
+                        off, ln = base + cb.segments[0][0], len(segs[0])
+                    else:
+                        seg = b"".join(segs)
+                    if seg is not None:
+                        off, ln = size, len(seg)
+                        parts.append(seg)
+                        size += len(seg)
+                    rows.append(j2k_t1.t1_row(
+                        off, ln, cb.x1 - cb.x0, cb.y1 - cb.y0, band.btype,
+                        max(0, mb - cb.zero_bps), cb.num_passes, style)
+                        + (band.w, plane + (cb.y0 - band.y0) * band.w
+                           + cb.x0 - band.x0))
+    return np.asarray(rows, np.int64), b"".join(parts)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_native_rows_and_staged_buffer_equal_the_reference_rows(
+        kind, monkeypatch):
+    """The rows Tier-2 writes in its one native pass a tile, and the
+    staged buffer, equal the rows built here from the JAX package's Tier-2
+    block by block: the same fields in the same order, and the same data
+    (each tile's data, then its joined segments and blobs)."""
+    px = make_photo(128, 192, seed=7)
+    data = _stream(kind, px)
+    job = _card_table(data, monkeypatch)
+    want, want_data = _reference_table(data, job.stage)
+    table = job.stage.t1
+    got = table.rows()
+    assert len(got) == len(want) > 0
+    assert np.array_equal(got[:, :8], want[:, :8])
+    assert np.array_equal(j2k_t1.row_dest(got[:, 8], got[:, 9]), want[:, 8])
+    buf, lay = table.staged()
+    assert bytes(buf[lay.data_start:].numpy()) == want_data
+    staged = buf[:lay.rows * j2k_t1.ROW * 4].view(torch.int32).view(
+        lay.rows, j2k_t1.ROW).numpy()
+    order = np.argsort(-want[:, 1], kind="stable")
+    assert np.array_equal(staged[:, :8], want[order, :8])
+
+
+def _malformed(kind):
+    """A 2-layer stream cut short inside its tile data (packets whose
+    bodies, or headers, run past its end), or with every band's exponent
+    at 31 (`_bad_qcd`)."""
+    px = make_photo(96, 128, seed=12)
+    data = port_core.encode_j2k(px, reversible=True, levels=3, num_layers=2,
+                           stream_type="j2k")
+    if kind == "bad_qcd":
+        return _bad_qcd(data)
+    i = data.find(b"\xff\x93") + 2
+    return data[:i + (len(data) - i) * int(kind[3:]) // 100]
+
+
+@pytest.mark.parametrize("route", ["card_table", "host"])
+@pytest.mark.parametrize("kind", ["cut00", "cut02", "cut50", "cut97",
+                                  "bad_qcd"])
+def test_malformed_streams_raise_todays_messages(kind, route, monkeypatch):
+    """Truncated packets and blocks the native decoder refuses raise the
+    ValueError the JAX package's decoder raises for the same stream, on
+    the table route (before any launch) and on the host route."""
+    data = _malformed(kind)
+    with pytest.raises(ValueError) as want:
+        ref_core.decode_j2k(data)
+    device = None
+    if route == "card_table":
+        said = _on_card_rule(monkeypatch)
+        _no_launch(monkeypatch)
+        device = CPU
+    with pytest.raises(ValueError) as got:
+        port_core.decode_j2k(data, device=device)
+    assert str(got.value) == str(want.value)
+    if route == "card_table":
+        assert said == [True]

@@ -2,7 +2,10 @@
 
 On the CPU: the rule that sends a tile's code-blocks to the card, one case a
 condition; the code-block table against the native batch decoder's rows and
-the addresses `BlockBatch` computes for the same tile; malformed rows
+the addresses the host Tier-1 decodes it to (tests/test_torch_j2k.py holds
+them against rows built from the JAX package's Tier-2); the table's
+coefficients against the native_into route's on streams of several layers,
+precincts, a tile grid, every part-1 style, PPT and PPM; malformed rows
 raising the native decoder's message before any launch; the kernel's decode
 core, compiled for the host, against the native decoder; and the whole
 route through the table on the CPU (its plain version) against the host
@@ -29,8 +32,9 @@ import torch
 
 import nvimagecodec_tpu_torch as port
 from nvimagecodec_tpu_torch.codecs.jpeg2000 import core
-from nvimagecodec_tpu_torch.codecs.jpeg2000.t1_bridge import (BlockBatch,
-                                                             EncodeBatch)
+from nvimagecodec_tpu_torch.codecs.jpeg2000.t1_bridge import EncodeBatch
+from nvimagecodec_tpu_torch.codecs.jpeg2000.t2 import (_EncCblk,
+                                                      plan_layers_seg)
 from nvimagecodec_tpu_torch.core import trace
 from nvimagecodec_tpu_torch.ops import j2k_t1
 from util import make_photo
@@ -103,13 +107,140 @@ def test_route_rule_one_condition_at_a_time(change, want):
 
 
 # -------------------------------------------------------------- the table
+def _packed(px, where):
+    """The port's 2-layer stream of px with its packet headers moved out of
+    the tile data, into two PPT segments of the tile-part header
+    (`where="ppt"`, T.800 A.7.5) or two PPM segments of the main header
+    ("ppm", A.7.4), the bodies left in place; the headers' lengths are
+    recorded from the Python packet writer."""
+    from nvimagecodec_tpu_torch.codecs.jpeg2000 import t2 as t2m
+
+    sizes, heads = [], []
+    init, write = t2m.PacketEncoder.__init__, t2m.PacketEncoder.write_packet
+    flush = t2m.HeaderBitWriter.flush
+
+    def init_py(self, *a, **k):
+        init(self, *a, **k)
+        self._nctx = None
+
+    def write_rec(self, *a):
+        b = write(self, *a)
+        sizes.append(len(b))
+        return b
+
+    def flush_rec(self):
+        out = flush(self)
+        heads.append(len(out))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t2m.PacketEncoder, "__init__", init_py)
+        mp.setattr(t2m.PacketEncoder, "write_packet", write_rec)
+        mp.setattr(t2m.HeaderBitWriter, "flush", flush_rec)
+        s = core.encode_j2k(px, reversible=True, levels=3, num_layers=2,
+                            stream_type="j2k")
+    i = s.find(b"\xff\x90")
+    psot = struct.unpack_from(">I", s, i + 6)[0]
+    isot = struct.unpack_from(">H", s, i + 4)[0]
+    tdata = s[s.find(b"\xff\x93", i) + 2:i + psot]
+    headers, bodies, off = bytearray(), bytearray(), 0
+    for total, hl in zip(sizes, heads):
+        headers += tdata[off:off + hl]
+        bodies += tdata[off + hl:off + total]
+        off += total
+    assert off == len(tdata)
+    rec = headers if where == "ppt" else struct.pack(">I", len(headers)) + (
+        headers)
+    cut = len(rec) // 2
+    marker = b"\xff\x61" if where == "ppt" else b"\xff\x60"
+    segs = b"".join(marker + struct.pack(">H", 3 + len(part)) + bytes([z])
+                    + part for z, part in enumerate((rec[:cut], rec[cut:])))
+    body = (segs if where == "ppt" else b"") + b"\xff\x93" + bytes(bodies)
+    sot = struct.pack(">HHHIBB", 0xFF90, 10, isot, 12 + len(body), 0, 1)
+    return (s[:i] + (segs if where == "ppm" else b"") + sot + body
+            + b"\xff\xd9")
+
+
+# stream -> encode_j2k keywords: several layers, precincts, a uniform tile
+# grid, each part-1 style, PPT and PPM
+STREAMS = {
+    "plain": {},
+    "grid": dict(tile_size=64, levels=3),
+    "termall": dict(mode_switches=0x25, num_layers=2),
+    "layers": dict(num_layers=3),
+    "precincts_rpcl": dict(num_layers=2, precincts=(5, 5),
+                           prog_order="RPCL"),
+    "bypass_layers": dict(mode_switches=0x01, num_layers=3),
+    "reset": dict(mode_switches=0x02),
+    "termall_layers": dict(mode_switches=0x04, num_layers=3),
+    "causal": dict(mode_switches=0x08),
+    "segsym": dict(mode_switches=0x20),
+}
+
+
+def _split_first_segment(segments, zero_bps, num_layers):
+    """A layer plan (`t2.plan_layers_seg`'s) that puts the first half of a
+    block's first codeword segment, passes and bytes, in layer 0 and the
+    rest of it with the other segments in layer 1: layer 1's first length
+    field then continues a segment begun in another packet."""
+    (seg0, n0), rest = segments[0], segments[1:]
+    if n0 < 2 or num_layers < 2:
+        return plan_layers_seg(segments, zero_bps, num_layers)
+    k, cut = n0 // 2, len(seg0) // 2
+    later = [(seg0[cut:], n0 - k)] + rest
+    layers = [(seg0[:cut], k),
+              (b"".join(x for x, _n in later), sum(n for _x, n in later))]
+    return _EncCblk(layers + [(b"", 0)] * (num_layers - 2), zero_bps, 0,
+                    splits={1: later} if len(later) > 1 else {})
+
+
 def _stream(kind, px):
     if kind == "openjpeg":
         return _openjpeg(px)
-    kw = {"grid": dict(tile_size=64, levels=3), "termall": dict(
-        mode_switches=0x25, num_layers=2), "plain": {}}[kind]
+    if kind in ("ppt", "ppm"):
+        return _packed(px, kind)
+    if kind == "bypass_continued":
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(core, "plan_layers_seg", _split_first_segment)
+            return core.encode_j2k(px, reversible=True, stream_type="j2k",
+                                   levels=4, mode_switches=0x01,
+                                   num_layers=2)
     return core.encode_j2k(px, reversible=True, stream_type="j2k",
-                           **{"levels": 4, **kw})
+                           **{"levels": 4, **STREAMS[kind]})
+
+
+KINDS = ["openjpeg", *STREAMS, "bypass_continued", "ppt", "ppm"]
+
+
+def _card_table(data, monkeypatch):
+    """The code-block table the device route builds for `data`, with the
+    rule answering as for a CUDA device."""
+    _on_card_rule(monkeypatch)
+    job = core._decode_host_stages(data, 0, CPU, 0, None, False)
+    assert job.stage.flat is None and job.stage.t1 is not None
+    return job
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_table_route_coefficients_equal_the_native_into_route(kind,
+                                                              monkeypatch):
+    """The subbands the card table decodes to (through its plain version
+    on the CPU) equal, bit for bit, those the native decoder writes on the
+    native_into route of the same stream."""
+    px = make_photo(128, 192, seed=9)
+    data = _stream(kind, px)
+    real = core.plan_stream
+    got = {}
+    for site in ("card_table", "native_into"):
+        monkeypatch.setattr(core, "plan_stream", lambda *a, **k: real(
+            *a, **k)._replace(tier1=site))
+        job = core._decode_host_stages(data, 0, CPU, 0, None, False)
+        assert (job.stage.t1 is not None) == (site == "card_table")
+        LL, bands = job.stage.upload(CPU)
+        got[site] = [LL] + [b for lvl in bands for b in lvl]
+    for a, b in zip(got["card_table"], got["native_into"]):
+        assert torch.equal(a, b)
+    assert any(bool(a.any()) for a in got["native_into"])
 
 
 @pytest.mark.parametrize("kind", ["openjpeg", "plain", "grid", "termall"])
@@ -117,67 +248,90 @@ def test_table_rows_are_the_native_batch_rows_and_addresses(kind,
                                                             monkeypatch):
     """Decoding a tile, the table holds the native batch decoder's row of
     every block (segment, w, h, band | style, bit-planes, passes) and, as
-    its destination, the address the host Tier-1's BlockBatch decodes it
-    to (as an offset into the flat buffer) with its row stride."""
+    its destination, the address the host Tier-1 decodes it to (as an
+    offset into the flat buffer) with its row stride."""
     px = make_photo(128, 192, seed=7)
     data = _stream(kind, px)
-    # the host route: every tile's batch and destinations
+    # the host route: every tile's part-1 batch and destinations
     batches = []
-    real_run_into = BlockBatch.run_into
+    real_batch = j2k_t1.decode_batch_into
 
-    def spy(self, nthreads=0):
-        batches.append(self)
-        return real_run_into(self, nthreads)
+    def spy(kind, data, meta, bases, offsets, strides, *a, **k):
+        batches.append((np.asarray(meta), np.asarray(offsets) * 4
+                        + np.asarray(bases, np.int64), np.asarray(strides)))
+        return real_batch(kind, data, meta, bases, offsets, strides, *a,
+                          **k)
 
-    monkeypatch.setattr(BlockBatch, "run_into", spy)
+    monkeypatch.setattr(j2k_t1, "decode_batch_into", spy)
     job = core._decode_host_stages(data, 0, CPU, 0, None, False)
+    monkeypatch.setattr(j2k_t1, "decode_batch_into", real_batch)
     base = job.stage.flat.data_ptr()
-    want_rows = []
-    for batch in batches:
-        meta = np.asarray(batch._meta["T1"], np.int64).reshape(
-            -1, j2k_t1.META)
-        dests = np.asarray(batch._dest["T1"], np.int64).reshape(-1, 3)
-        for m, (addr, off, stride) in zip(meta, dests):
-            want_rows.append((m, stride, (addr + off * 4 - base) // 4))
-    # the device route's table
-    _on_card_rule(monkeypatch)
-    tables = []
-    real_end = j2k_t1.BlockTable.end_tile
-
-    def end_spy(self):
-        tables.append(self)
-        return real_end(self)
-
-    monkeypatch.setattr(j2k_t1.BlockTable, "end_tile", end_spy)
-    bases = []  # where each tile's data starts in the table's data
+    # the device route's table, and where each tile's data starts in it
+    bases = []
     real_add_tile = j2k_t1.BlockTable.add_tile
 
-    def add_tile_spy(self, tdata):
-        bases.append((len(self), self._size))
-        return real_add_tile(self, tdata)
+    def add_tile_spy(self, rows, parts, bad):
+        bases.append((len(self), self.size))
+        return real_add_tile(self, rows, parts, bad)
 
     monkeypatch.setattr(j2k_t1.BlockTable, "add_tile", add_tile_spy)
-    job2 = core._decode_host_stages(data, 0, CPU, 0, None, False)
-    assert job2.stage.flat is None and job2.stage.t1 is not None
-    rows = tables[-1].rows()
-    assert len(rows) == len(want_rows) > 0
+    rows = _card_table(data, monkeypatch).stage.t1.rows().astype(np.int64)
     assert len(bases) == len(batches)
+    want = np.concatenate([m for m, _a, _s in batches])
+    assert len(rows) == len(want) > 0
     # a batch's segment offsets count from its tile's data
     ends = [first for first, _b in bases[1:]] + [len(rows)]
-    for (first, base), end in zip(bases, ends):
-        rows[first:end, 0] -= base
-    for row, (m, stride, dest) in zip(rows, want_rows):
-        assert row[:7].tolist() == m.tolist()
-        assert (row[7], row[8]) == (stride, dest)
+    for (first, b), end in zip(bases, ends):
+        rows[first:end, 0] -= b
+    assert np.array_equal(rows[:, :7], want)
+    addrs = np.concatenate([a for _m, a, _s in batches])
+    strides = np.concatenate([st for _m, _a, st in batches])
+    assert np.array_equal(rows[:, 7], strides)
+    assert np.array_equal(j2k_t1.row_dest(rows[:, 8].astype(np.int32),
+                                          rows[:, 9].astype(np.int32)),
+                          (addrs - base) // 4)
+
+
+def test_tier2_layout_is_made_once_for_streams_written_alike(monkeypatch):
+    """Tier-2's layout of a tile (geometry and packet order) is made once
+    for streams whose main headers are alike and then reused, made anew
+    for another header, and not kept for PPM streams (their main header
+    holds every packet header); every image is still its source."""
+    made = []
+    real = core.tile_layout
+
+    def spy(*a):
+        made.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(core, "tile_layout", spy)
+    monkeypatch.setattr(core, "_LAYOUTS", {})
+    pxs = [make_photo(64, 96, seed=s) for s in (1, 2)]
+    for px in pxs:  # two images, one header
+        data = core.encode_j2k(px, reversible=True, levels=3,
+                               stream_type="j2k")
+        assert np.array_equal(core.decode_j2k(data, device=None), px)
+    assert len(made) == 1 and len(core._LAYOUTS) == 1
+    other = core.encode_j2k(pxs[0], reversible=True, levels=2,
+                            stream_type="j2k")
+    assert np.array_equal(core.decode_j2k(other, device=None), pxs[0])
+    assert len(made) == 2 and len(core._LAYOUTS) == 2
+    for _ in range(2):
+        assert np.array_equal(
+            core.decode_j2k(_packed(pxs[1], "ppm"), device=None), pxs[1])
+    assert len(made) == 4 and len(core._LAYOUTS) == 2
 
 
 def test_staged_buffer_holds_the_table_longest_first_then_the_data():
     t = j2k_t1.BlockTable()
-    t.add_tile(b"abcdefgh")
-    t.add(((2, 3), 4, 4, 1, 5, 13, 0, 0, 0), (0, 4))
-    t.add((b"XYZW!", 64, 64, 3, 9, 25, 0, 0, 0), ((1 << 33) + 5, 64))
-    t.add(((0, 1), 1, 1, 0, 1, 1, 0, 0, 0), (16, 1))
-    assert t.end_tile() == 3
+    rows = np.asarray([
+        j2k_t1.t1_row(2, 3, 4, 4, 1, 5, 13, 0) + (4, 0, 0),
+        j2k_t1.t1_row(8, 5, 64, 64, 3, 9, 25, 0) + (64, 5, 2),
+        j2k_t1.t1_row(0, 1, 1, 1, 0, 1, 1, 0) + (1, 16, 0)], np.int32)
+    data = (b"abcdefgh", b"XYZW!")
+    assert t.add_tile(rows, data, j2k_t1.check_rows(rows, b"".join(data))) \
+        == 3
+    assert t.size == 13
     buf, lay = t.staged()
     assert lay.rows == 3 and lay.data_start % 16 == 0
     assert lay.flag_words == (16 + 2) * 66 and lay.mag_words == 4096
@@ -207,36 +361,39 @@ def _blob(lens, data=b""):
 ], ids=["w0", "h4097", "nbps32", "nbps-1", "blob_short", "blob_no_segs",
         "blob_113_segs", "blob_length_past_end", "blob_negative_length"])
 def test_malformed_rows_raise_the_native_decoders_message(kw, seg):
-    """A row the native decoder refuses raises, at the end of its tile, the
-    ValueError BlockBatch raises for the same block."""
+    """A row the native decoder refuses is found by the native rows check
+    (the one Tier-2's rows pass applies) and raises, as the table takes
+    the tile, the ValueError the native batch decoder raises for the same
+    block."""
     args = {"w": 8, "h": 8, "band": 0, "nbps": 4, "passes": 10, "style": 0,
             **kw}
     good = b"\x12\x34\x56"
+    rows = np.asarray([
+        j2k_t1.t1_row(0, 3, 8, 8, 0, 4, 10, 0) + (8, 0, 0),
+        j2k_t1.t1_row(3, len(seg), args["w"], args["h"], args["band"],
+                      args["nbps"], args["passes"], args["style"])
+        + (max(8, args["w"]), 64, 0)], np.int32)
+    bad = j2k_t1.check_rows(rows, good + seg)
+    assert bad == 1
     t = j2k_t1.BlockTable()
-    t.add_tile(good)
-    first = ((0, 3), 8, 8, 0, 4, 10, 0)
-    block = (seg, args["w"], args["h"], args["band"], args["nbps"],
-             args["passes"], args["style"])
-    t.add(first + (0, 0), (0, 8))
-    t.add(block + (0, 0), (64, max(8, args["w"])))
     with pytest.raises(ValueError) as got:
-        t.end_tile()
+        t.add_tile(rows, (good, seg), bad)
     assert str(got.value) == "J2K T1 block decode failed rc=1 (block 1 of 2)"
-    b = BlockBatch(base=good)
+    assert len(t) == 0
     out = np.zeros((64, 64), np.int32)
-    b.add_t1(first + (0, 0), (out.ctypes.data, 64))
-    b.add_t1(block + (8, 0), (out.ctypes.data, 64))
     with pytest.raises(ValueError) as host:
-        b.run_into(1)
+        j2k_t1.decode_batch_into("T1", good + seg, rows[:, :j2k_t1.META],
+                                 out.ctypes.data, [0, 8], rows[:, 7], 1)
     assert str(host.value) == str(got.value)
 
 
 def test_segment_outside_its_tile_raises():
-    t = j2k_t1.BlockTable()
-    t.add_tile(b"\x00" * 10)
-    t.add(((8, 3), 4, 4, 0, 3, 7, 0, 0, 0), (0, 4))
+    rows = np.asarray([j2k_t1.t1_row(8, 3, 4, 4, 0, 3, 7, 0) + (4, 0, 0)],
+                      np.int32)
+    bad = j2k_t1.check_rows(rows, b"\x00" * 10)
+    assert bad == 0
     with pytest.raises(ValueError, match=r"rc=1 \(block 0 of 1\)"):
-        t.end_tile()
+        j2k_t1.BlockTable().add_tile(rows, (b"\x00" * 10,), bad)
 
 
 def _bad_qcd(data):
@@ -320,9 +477,17 @@ def _synthetic_table(styles, seed, edge_rows=True):
               (64, 64, 3, 300.0), (1, 1, 2, 3.0), (1, 64, 1, 9.0),
               (64, 1, 3, 9.0), (7, 13, 2, 50.0), (33, 17, 1, 1000.0),
               (4, 1024, 0, 20.0), (1024, 4, 2, 20.0), (16, 16, 0, None)]
-    t = j2k_t1.BlockTable()
-    t.add_tile(b"")
-    total = 0
+    rows, segs = [], []
+    total = size = 0
+
+    def add(seg, w, h, band, nbps, passes, sty):
+        nonlocal total, size
+        rows.append(j2k_t1.t1_row(size, len(seg), w, h, band, nbps, passes,
+                                  sty) + (w, total, 0))
+        segs.append(seg)
+        size += len(seg)
+        total += w * h
+
     for k, (h, w, band, amp) in enumerate(shapes):
         sty = styles[k % len(styles)]
         if amp is None:  # one coefficient at the top bit-plane
@@ -340,16 +505,16 @@ def _synthetic_table(styles, seed, edge_rows=True):
             ends = res[3]
             lens = [e - p for p, e in zip([0] + ends[:-1], ends)]
             data = _blob(lens, data)
-        t.add((data, w, h, band, nbps, npasses, sty, 0, 0), (total, w))
-        total += w * h
+        add(data, w, h, band, nbps, npasses, sty)
     if edge_rows:
         for seg, nbps, passes, sty in (
                 (b"", 6, 16, 0), (b"\x55", 3, 0, 0),
                 (rng.integers(0, 256, 600, np.uint8).tobytes(), 31, 91, 0),
                 (_blob([0, 2], b"\xff\x7f"), 5, 13, 0x04)):
-            t.add((seg, 32, 32, 3, nbps, passes, sty, 0, 0), (total, 32))
-            total += 32 * 32
-    t.end_tile()
+            add(seg, 32, 32, 3, nbps, passes, sty)
+    rows = np.asarray(rows, np.int32)
+    t = j2k_t1.BlockTable()
+    t.add_tile(rows, segs, j2k_t1.check_rows(rows, b"".join(segs)))
     return t, total
 
 

@@ -1,8 +1,8 @@
 """The J2K decode's spans and counters (`core/trace.py`) on the CPU: Tier-2
 and Tier-1 spans under the host stage, the native Tier-1 workers' CPU time
 charged to the Tier-1 span, the sample pool's spans under the plugin's,
-the code-block and codestream-byte counters, and nothing counted or
-measured while collection is off."""
+the code-block, native-row and codestream-byte counters, and nothing
+counted or measured while collection is off."""
 import numpy as np
 import pytest
 import torch
@@ -101,6 +101,35 @@ def test_codeblock_and_byte_counters_are_what_the_streams_hold():
     assert c["imgcodec.jpeg2k.stream_bytes"] == sum(len(d) for _p, d in pairs)
     assert c["imgcodec.jpeg2k.codeblocks"] == sum(
         _blocks_with_coefficients(px) for px, _d in pairs)
+
+
+@pytest.mark.parametrize("route", ["card_table", "native_into",
+                                   "native_blocks", "ht"])
+def test_native_rows_counter_counts_the_blocks_of_the_native_pass(
+        route, monkeypatch):
+    """`imgcodec.jpeg2k.codeblocks_native_rows` counts the code-blocks
+    whose row Tier-2's native pass wrote: on the table route every block
+    sent to the card (`codeblocks_device`); on the host routes, the
+    part-1 (5/3 and 9/7) and HT ones, every block decoded, none counted on
+    a card: no route is left that builds a block's row in Python."""
+    px, data = _stream(128, 96)
+    if route == "native_blocks":
+        data = core.encode_j2k(px, reversible=False, levels=3,
+                               stream_type="j2k")
+    elif route == "ht":
+        data = core.encode_j2k(px, reversible=True, levels=3, ht=True,
+                               stream_type="j2k")
+    device = None
+    if route == "card_table":
+        real = core.tier1_on_device
+        monkeypatch.setattr(core, "tier1_on_device", lambda device, *a: real(
+            torch.device("cuda"), *a))
+        device = CPU
+    c = _collected(lambda: core.decode_j2k(data, device=device))["counters"]
+    n = c["imgcodec.jpeg2k.codeblocks"]
+    assert n > 0 and c["imgcodec.jpeg2k.codeblocks_native_rows"] == n
+    assert c.get("imgcodec.jpeg2k.codeblocks_device", 0) == (
+        n if route == "card_table" else 0)
 
 
 def test_native_workers_cpu_is_charged_to_tier1():
