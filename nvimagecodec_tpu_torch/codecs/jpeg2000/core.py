@@ -33,7 +33,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ...core.trace import add_count, charge_ns, span
+from ...core.trace import add_count, charge_ns, collecting, span
 from ...ops import dwt as dwt_ops
 from ...ops import j2k_t1
 from ...parallel.tiles import idwt_tiles_sharded
@@ -751,17 +751,21 @@ class _SubbandStage:
     flat buffer that the pixel stage reads.
 
     `lead` is (C,) or (T, C); leaf i is the [*lead, h, w] stack of one
-    subband: LL first, then (HL, LH, HH) per level, finest first. Without
-    `t1`, the buffer is on the host (pinned for a CUDA device) and goes up
-    in one copy: the host Tier-1 writes int32 blocks straight into the
-    leaves' views, and dequantised float leaves by an assignment that
-    casts, so the buffer is written once and never repacked. With `t1`,
-    the code-block table (ops/j2k_t1.py) of the card's Tier-1, the table
-    goes up with the codestream instead, and the buffer is made zeroed on
-    the device and decoded into there."""
+    subband: LL first, then (HL, LH, HH) per level, finest first. The
+    leaves are int32: a 5/3 stage's coefficients, or, with `steps` (a 9/7
+    stage: each leaf's quantiser step over 2), each coefficient's
+    mid-interval reconstruction with one fractional bit, which the stage
+    multiplies by the step in float32 after the upload (`dequantized`).
+    Without `t1`, the buffer is on the host (pinned for a CUDA device) and
+    goes up in one copy: the host Tier-1 writes every block straight into
+    the leaves' views, so the buffer is written once and never repacked.
+    With `t1`, the code-block table (ops/j2k_t1.py) of the card's Tier-1,
+    the table goes up with the codestream instead, and the buffer is made
+    zeroed on the device and decoded into there."""
 
-    def __init__(self, lead, band_dims, dtype: torch.dtype, device,
-                 t1: Optional[j2k_t1.BlockTable] = None):
+    def __init__(self, lead, band_dims, device,
+                 t1: Optional[j2k_t1.BlockTable] = None,
+                 steps: Optional[List[float]] = None):
         self.lead = tuple(lead)
         self.shapes = [self.lead + tuple(d) for d in band_dims]
         sizes = [math.prod(sh) for sh in self.shapes]
@@ -769,9 +773,10 @@ class _SubbandStage:
         for n in sizes:
             self.offs.append(self.offs[-1] + n)
         self.t1 = t1
+        self.steps = steps
         self.flat = self.leaves = None
         if t1 is None:
-            self.flat = _upload_buffer(self.offs[-1], dtype, device)
+            self.flat = _upload_buffer(self.offs[-1], torch.int32, device)
             flat_np = self.flat.numpy()
             self.leaves = [flat_np[self.offs[i]:self.offs[i + 1]].reshape(sh)
                            for i, sh in enumerate(self.shapes)]
@@ -789,14 +794,31 @@ class _SubbandStage:
             flat = flat * n + k
         return self.offs[i] + flat * h * w
 
-    def host_tensors(self):
-        """(LL, bands finest-first) as CPU tensor views of the host buffer
-        (pinned for a CUDA device): what a mesh's devices copy their shares
-        from."""
-        lv = [self.flat[self.offs[i]:self.offs[i + 1]].view(sh)
+    def dequantized(self, flat: torch.Tensor) -> torch.Tensor:
+        """A flat buffer of the stage's layout, where it lives: as it is
+        for a 5/3 stage; for a 9/7 stage, float32, each leaf's int32
+        half-steps times its step over 2 (one multiply a leaf)."""
+        if self.steps is None:
+            return flat
+        with span("imgcodec.jpeg2k.dequantize"):
+            out = torch.empty(flat.shape, dtype=torch.float32,
+                              device=flat.device)
+            for i, step in enumerate(self.steps):
+                a, b = self.offs[i], self.offs[i + 1]
+                torch.mul(flat[a:b], step, out=out[a:b])
+        return out
+
+    def _views(self, flat: torch.Tensor):
+        lv = [flat[self.offs[i]:self.offs[i + 1]].view(sh)
               for i, sh in enumerate(self.shapes)]
         return lv[0], [tuple(lv[1 + 3 * k:4 + 3 * k])
                        for k in range((len(lv) - 1) // 3)]
+
+    def host_tensors(self):
+        """(LL, bands finest-first) as CPU tensors of the host buffer
+        (views of it, pinned for a CUDA device, for a 5/3 stage): what a
+        mesh's devices copy their shares from."""
+        return self._views(self.dequantized(self.flat))
 
     def upload(self, device):
         """One copy; (LL, bands finest-first) as views of the device
@@ -821,11 +843,7 @@ class _SubbandStage:
                 dev = torch.zeros(self.offs[-1], dtype=torch.int32,
                                   device=device)
                 j2k_t1.decode_codeblocks(staged, layout, dev)
-        lv = [dev[self.offs[i]:self.offs[i + 1]].view(sh)
-              for i, sh in enumerate(self.shapes)]
-        bands = [tuple(lv[1 + 3 * k:4 + 3 * k])
-                 for k in range((len(lv) - 1) // 3)]
-        return lv[0], bands
+        return self._views(self.dequantized(dev))
 
 
 def device_pixels(LL, bands, out_shape, reversible: bool, mct: bool,
@@ -1092,8 +1110,8 @@ def plan_stream(cs: bytes, device, discard_levels: int = 0, region=None,
     - the Tier-1 site: "card_table" where the device route takes the stream
       and `tier1_on_device` holds; else "native_into" (the native decoder
       writes into the subband planes) where every component is 5/3, and
-      "native_blocks" (decoded planes then RGN-unshifted and dequantised)
-      otherwise.
+      "native_blocks" (9/7 planes of mid-interval half-steps, dequantised
+      on the host, or on the device by the stage) otherwise.
 
     Arbitrary (incl. odd) image and tile offsets and odd tile sizes are
     decoded: the DWT lifts take per-level parity from the absolute
@@ -1217,13 +1235,25 @@ def _subband_stage(plan: StreamPlan, tile: _Tile) -> _SubbandStage:
     for (r, bi) in _band_order(cp):
         band = tile.resolutions[0][r].bands[bi]
         dims[_SubbandStage.leaf_index(cp.levels, r, bi)] = (band.h, band.w)
+    steps = None
+    if not cp.reversible:  # the device route's components share cp's steps
+        steps = [None] * len(dims)
+        for (r, bi) in _band_order(cp):
+            steps[_SubbandStage.leaf_index(cp.levels, r, bi)] = _step(
+                plan, cp, tile.resolutions[0][r].bands[bi], r, bi) / 2
     siz = plan.siz
     lead = ((siz.tiles_x * siz.tiles_y, siz.ncomp)
             if plan.pixels == "device_grid" else (siz.ncomp,))
     return _SubbandStage(
-        lead, dims, torch.int32 if cp.reversible else torch.float32,
-        plan.device,
-        j2k_t1.BlockTable() if plan.tier1 == "card_table" else None)
+        lead, dims, plan.device,
+        j2k_t1.BlockTable() if plan.tier1 == "card_table" else None, steps)
+
+
+def _step(plan: StreamPlan, cc: CodingParams, band: Band, r: int,
+          bi: int) -> float:
+    """The quantiser step of a 9/7 band (T.800 E-3)."""
+    eps, mu = cc.band_q[_band_order(cc).index((r, bi))]
+    return _eps_mu_to_delta(eps, mu, plan.depth + band.gain)
 
 
 # -------------------------------------------------------- Tier-2 to Tier-1
@@ -1271,9 +1301,24 @@ def _band_specs(plan: StreamPlan, tile: _Tile, pdec: PacketDecoder, sink):
                     if plan.roi is not None else None)
             specs.append(pdec.band_spec(
                 c, r, bi, band, sink.band(c, r, bi, band),
-                eps + cc.guard_bits - 1 + rgn.get(c, 0), cc.cblk_style,
+                eps + cc.guard_bits - 1 + rgn.get(c, 0),
+                cc.cblk_style | (_MIDPOINT if _midpoint(plan, c) else 0),
                 need))
     return specs
+
+
+# the style bit of a 9/7 band's part-1 blocks (native/j2k_t1.cpp
+# kMidpoint): each coefficient written as 2|q| + 2^L, twice the middle of
+# the interval its decoded bit-planes leave (T.800 E.1.1.2, r = 1/2)
+_MIDPOINT = 0x80
+
+
+def _midpoint(plan: StreamPlan, c: int) -> bool:
+    """Whether component c's part-1 blocks decode to mid-interval
+    half-steps: its 9/7 components without an ROI shift (those, and HT
+    blocks, decode to integers that `_NativeBlocks` makes half-steps)."""
+    cc = plan.ccs[c]
+    return not cc.reversible and not (plan.cp.rgn or {}).get(c, 0)
 
 
 # ------------------------------------------------------------ Tier-1 sinks
@@ -1281,9 +1326,9 @@ def _band_specs(plan: StreamPlan, tile: _Tile, pdec: PacketDecoder, sink):
 # band's destination, (element offset of its plane, row stride), `base` is
 # where the tile's data starts in the data the rows count from, and
 # `finish(rows, tdata)` decodes (or, on the card, checks and keeps) the
-# tile's rows (`t2.TileRows`) and returns (blocks, CPU ns of its native
-# workers). `planes[c][(r, bi)]` are the decoded planes the host pixel
-# stage reads.
+# tile's rows (`t2.TileRows`) and returns the blocks it took; the host
+# sinks charge their native workers' CPU to span imgcodec.jpeg2k.t1_host.
+# `planes[c][(r, bi)]` are the decoded planes the host pixel stage reads.
 def _rgn_unshift(a: np.ndarray, s: int) -> np.ndarray:
     """Maxshift decode (T.800 H.2): coefficients whose magnitude reaches
     the shifted planes are ROI; scale them back down."""
@@ -1311,7 +1356,7 @@ class _CardTable:
 
     def finish(self, rows, tdata):
         return self.stage.t1.add_tile(rows.t1, (tdata, rows.side),
-                                      rows.bad), 0
+                                      rows.bad)
 
 
 class _NativeInto:
@@ -1342,42 +1387,49 @@ class _NativeInto:
         return a.ctypes.data // 4, a.shape[1]
 
     def finish(self, rows, tdata):
-        cpu_ns = decode_rows_into(rows, tdata, self.num_threads)
+        with span("imgcodec.jpeg2k.t1_host"):
+            cpu_ns = decode_rows_into(rows, tdata, self.num_threads)
+            charge_ns("imgcodec.jpeg2k.t1_host", cpu_ns)
         rgn = self.plan.cp.rgn or {}
         for c, planes in enumerate(self.planes):
             if rgn.get(c, 0):
                 for a in planes.values():
                     a[...] = _rgn_unshift(a, rgn[c])
-        return len(rows.t1) + len(rows.ht), cpu_ns
+        add_count("imgcodec.jpeg2k.coding_passes",
+                  int(rows.t1[:, 6].sum()) + int(rows.ht[:, 4].sum()))
+        return len(rows.t1) + len(rows.ht)
 
 
 class _NativeBlocks(_NativeInto):
-    """As _NativeInto, into int32 planes of its own; then the 9/7
-    components' coefficients are dequantised (midpoint reconstruction) into
-    float64 planes. Where the device route takes the tile, every plane goes
-    into its stage leaf by one (casting) assignment."""
-
-    def _target(self, c, r, bi, band) -> np.ndarray:
-        return np.zeros((band.h, band.w), np.int32)
+    """As _NativeInto, where a component may be 9/7: its part-1 blocks
+    decode to mid-interval half-steps (`_MIDPOINT`), its HT or ROI-shifted
+    blocks to integers q made 2|q| + 1 here (the middle of the finest bin,
+    where the HT decoder has put a truncated block's value already). On
+    the device route the planes are the stage's leaves, which the stage
+    dequantises on the device; on the host every 9/7 plane is dequantised
+    here into float64 (half-steps times the step over 2)."""
 
     def finish(self, rows, tdata):
-        n, cpu_ns = super().finish(rows, tdata)
+        n = super().finish(rows, tdata)
         for c, planes in enumerate(self.planes):
             cc = self.plan.ccs[c]
-            order = _band_order(cc)
-            for (r, bi), a in planes.items():
-                if not cc.reversible:
-                    eps, mu = cc.band_q[order.index((r, bi))]
+            if cc.reversible:
+                continue
+            if not _midpoint(self.plan, c) or cc.cblk_style & 0x40:
+                for a in planes.values():
+                    a[...] = 2 * a + np.sign(a)
+        if self.stage is not None:
+            return n
+        with span("imgcodec.jpeg2k.dequantize"):
+            for c, planes in enumerate(self.planes):
+                cc = self.plan.ccs[c]
+                if cc.reversible:
+                    continue
+                for (r, bi), a in planes.items():
                     band = self.tile.resolutions[c][r].bands[bi]
-                    delta = _eps_mu_to_delta(eps, mu,
-                                             self.plan.depth + band.gain)
-                    mag = np.abs(a).astype(np.float64)
-                    a = planes[(r, bi)] = np.sign(a) * np.where(
-                        mag > 0, (mag + 0.5) * delta, 0.0)
-                if self.stage is not None:
-                    i, idx = _leaf(self.plan, self.tile, c, r, bi)
-                    self.stage.leaves[i][idx][...] = a
-        return n, cpu_ns
+                    planes[(r, bi)] = a * (
+                        _step(self.plan, cc, band, r, bi) / 2)
+        return n
 
 
 _SINKS = {"card_table": _CardTable, "native_into": _NativeInto,
@@ -1391,13 +1443,17 @@ def _tier1(plan: StreamPlan, tile: _Tile, pdec: PacketDecoder, tdata: bytes,
     counters; returns the sink's decoded planes (None on the card)."""
     sink = _SINKS[plan.tier1](plan, tile, stage, num_threads)
     rows = pdec.rows(_band_specs(plan, tile, pdec, sink), tdata, sink.base)
-    n, cpu_ns = sink.finish(rows, tdata)
+    n = sink.finish(rows, tdata)
     add_count("imgcodec.jpeg2k.codeblocks", n)
     add_count("imgcodec.jpeg2k.codeblocks_native_rows",
               len(rows.t1) + len(rows.ht))
+    if collecting():
+        # part-1 blocks whose passes end above plane 0: 3 Mb - 2 a block
+        t1 = rows.t1
+        add_count("imgcodec.jpeg2k.codeblocks_truncated", int(
+            np.count_nonzero(t1[:, 6] < 3 * t1[:, 5] - 2)))
     if plan.tier1 == "card_table":
         add_count("imgcodec.jpeg2k.codeblocks_device", n)
-    charge_ns("imgcodec.jpeg2k.t1", cpu_ns)
     return sink.planes
 
 

@@ -1164,13 +1164,20 @@ struct T1EncoderFast {
 
 extern "C" {
 
+// Style bit of an irreversible (9/7) block, above the part-1 mode
+// switches and HT's 0x40: the decoder writes the mid-interval
+// reconstruction with one fractional bit (the caller scales by step / 2).
+constexpr int kMidpoint = 0x80;
+
 // Decode one codeblock. data: single codeword segment (default style).
 // num_bps: magnitude bitplanes present (Mb - zero_bitplanes).
 // num_passes: coding passes included (first bitplane has cleanup only).
 // out: signed reconstruction values (no dequant; caller applies) written as
-// h rows of w at row stride `stride` elements. The written region must
-// arrive zero-initialized (magnitude bits are OR-accumulated in place) —
-// both bridges pass np.zeros / fresh band arrays.
+// h rows of w at row stride `stride` elements: the decoded integer, or,
+// under kMidpoint, twice the mid-interval value (at most 30 bit-planes).
+// The written region must arrive zero-initialized (magnitude bits are
+// OR-accumulated in place) — both bridges pass np.zeros / fresh band
+// arrays.
 // Pass index p (0 = first cleanup) is a RAW pass under BYPASS when
 // p >= 10 and it is an SPP (p % 3 == 1) or MRP (p % 3 == 2) pass.
 static inline bool pass_is_raw(int style, int p) {
@@ -1191,7 +1198,8 @@ int tic_j2k_t1_decode_strided_style(const uint8_t* data, int len, int w,
                                     int num_bps, int num_passes,
                                     int32_t* out, int style) {
   if (w <= 0 || h <= 0 || w > 4096 || h > 4096 || num_bps < 0 ||
-      num_bps > 31 || num_passes < 0 || stride < w)
+      num_bps > ((style & kMidpoint) ? 30 : 31) || num_passes < 0 ||
+      stride < w)
     return 1;
   // Reused across the batch fan-out. The coder lives on the heap behind one
   // thread-local pointer, looked up once a block: with the object itself in
@@ -1280,6 +1288,31 @@ int tic_j2k_t1_decode_strided_style(const uint8_t* data, int len, int w,
         advance(pass - 1);
       }
     }
+  }
+  if ((style & kMidpoint) && pass > 0) {
+    // Each coefficient at the middle of the interval its decoded
+    // bit-planes leave (T.800 E.1.1.2, r = 1/2), with one fractional bit:
+    // 2|q| + 2^L, L the lowest plane decoded for it. The last pass decides
+    // L: a cleanup or a refinement pass reached every significant
+    // coefficient at its plane; a significance pass only those it made
+    // significant (below 2^(plane+1)), the others end a plane higher.
+    const int last = pass - 1;
+    const int plane = last == 0 ? num_bps - 1 : num_bps - 2 - (last - 1) / 3;
+    const bool spp = last > 0 && (last - 1) % 3 == 0;
+    const uint32_t thr = spp ? 1u << (plane + 1) : 0xFFFFFFFFu;
+    const uint32_t lo = 1u << plane;
+    const uint32_t hi = spp ? 1u << (plane + 1) : lo;
+    for (int y = 0; y < h; y++) {
+      int32_t* row = out + (size_t)y * stride;
+      for (int x = 0; x < w; x++) {
+        int32_t v = row[x];
+        uint32_t mag = (uint32_t)v & 0x7FFFFFFFu;
+        uint32_t r = mag ? 2 * mag + (mag >= thr ? hi : lo) : 0;
+        int32_t m = v >> 31;
+        row[x] = ((int32_t)r ^ m) - m;
+      }
+    }
+    return 0;
   }
   // sign-magnitude (sign in bit 31, set at significance time) → two's
   // complement; branchless, auto-vectorizes

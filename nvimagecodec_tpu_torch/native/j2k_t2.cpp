@@ -519,7 +519,8 @@ void tic_t2_side(void* h, uint8_t* dst) {
 // band, each band's precinct-bands in turn, each in raster order. specs:
 // nspecs bands, 16 int64 each: kind (0 part-1, 1 HT), the element offset
 // of the band's plane and its row stride, the band type, Mb (the band's
-// magnitude bit-planes), the code-block style, the band's x0 and y0, a
+// magnitude bit-planes), the code-block style (with 0x80, a 9/7 band's
+// mid-interval reconstruction, native/j2k_t1.cpp), the band's x0 and y0, a
 // region flag and the region (y0, x0, y1, x1; a block wholly outside it is
 // left out), the band's first precinct-band id, their count and the step
 // between their ids. data/len: the tile data (or body stream), which the
@@ -560,7 +561,8 @@ void tic_t2_rows(void* h, const uint8_t* data, int64_t len, int64_t base,
         const int64_t* sp = specs + 16 * s;
         const int64_t plane = sp[1], stride = sp[2];
         const int btype = (int)sp[3], mb = (int)sp[4];
-        const int style = (int)sp[5] & 0x2F;
+        // the part-1 mode switches and the mid-interval bit of a 9/7 block
+        const int style = (int)sp[5] & 0xAF;
         const bool blob = (style & 0x05) != 0;
         for (int64_t k = 0; k < sp[14]; k++) {
             const PrecBand& pb = c->bands[sp[13] + k * sp[15]];

@@ -349,11 +349,13 @@ def test_subbands_go_up_in_one_buffer(monkeypatch):
     for leaf in st.leaves:
         assert np.shares_memory(leaf, st.flat.numpy())
     assert any(leaf.any() for leaf in st.leaves)
-    # a uniform grid: one buffer for all tiles, leaves [T, C, h, w]
+    # a uniform grid: one buffer for all tiles, leaves [T, C, h, w]; 9/7
+    # leaves hold int32 half-steps, a step a leaf to scale them by
     stages.clear()
     _img, a, _b = _both("tiled_uniform_irrev")
     port_core.decode_j2k(a, device=CPU)
-    assert len(stages) == 1 and stages[0].flat.dtype == torch.float32
+    assert len(stages) == 1 and stages[0].flat.dtype == torch.int32
+    assert len(stages[0].steps) == len(stages[0].leaves)
     assert stages[0].leaves[0].shape[:2] == (6, 3)
 
 
